@@ -1,0 +1,395 @@
+"""Krylov-Schur restarted eigensolver, scalar device path.
+
+Counterpart of ``partial_schur`` in ``arnoldi_tpu/solvers/krylov_schur.py``
+(its device path, lines 541-897): repeat [Arnoldi expand to m | ordered
+Schur of the projected H on the host | truncate the basis to p rows carrying
+the residual vector | test ``|h_{m+1,m} q_{m,i}| / |t_ii| < tol``].
+
+Everything n-sized (the expansion and the truncation gemm) runs on the
+operator's device; everything m-sized runs on the host in float64 through
+the JAX package's NumPy/C++ dense tier (``_host.dense_tier``), with only the
+small H crossing the boundary once per restart.  A real operator runs in the
+real work dtype with the real Schur form (2x2 blocks for conjugate pairs),
+as the TPU path and the host tier do.
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
+item): complex dtypes, ``block_size > 1``, ``mesh``, checkpointing,
+double-word refinement, and the host tier for small problems.
+"""
+
+import numpy as np
+import torch
+
+from .._host import History, dense_tier, sorting
+from ..device import check_matmul_precision, numpy_dtype, torch_dtype
+from ..linop import as_operator, cast_operator
+from ..utils.profiling import phase_clock
+from ..utils.random import rand_normalized_vector
+from .decomposition import arnoldi_expand, default_invariant_tol
+
+
+def _not_ported(what, item):
+    return NotImplementedError(
+        f"{what} is not ported to arnoldi_tpu_torch yet (ROADMAP.md, {item})")
+
+
+def _work_dtype(op_dtype, dtype):
+    wdtype = op_dtype if dtype is None else torch_dtype(dtype)
+    if wdtype.is_complex:
+        raise _not_ported("a complex work dtype", "Queue 1 item 5")
+    if wdtype not in (torch.float32, torch.float64):
+        raise TypeError(f"work dtype must be float32 or float64, got {wdtype}")
+    return wdtype
+
+
+def _schur_blocks(T):
+    """Block starts and sizes of a real quasi-triangular T, and
+    ``in_block``: ``in_block[i]`` when positions i-1 and i hold one 2x2
+    block (a cut at i would split a conjugate pair)."""
+    starts, sizes = dense_tier.real_schur_blocks(T)
+    in_block = np.zeros(T.shape[0] + 1, dtype=bool)
+    for s, sz in zip(starts, sizes):
+        if sz == 2:
+            in_block[s + 1] = True
+    return starts, sizes, in_block
+
+
+def _truncate(V, V_alt, Qp, m, p):
+    """``V_alt[:p] = Qp^T V[:m]`` with the residual row ``V[m]`` carried to
+    ``V_alt[p]``; returns the swapped pair ``(V_alt, V)``.  Rows past
+    ``p + 1`` of the new basis are stale: the expansion reads rows ``<= j``
+    only.  Writing into the second workspace avoids an (m+1, n) allocation
+    per restart."""
+    torch.matmul(Qp.T, V[:m], out=V_alt[:p])
+    V_alt[p] = V[m]
+    return V_alt, V
+
+
+def partial_schur(
+    A,
+    nev,
+    *,
+    max_dim=None,
+    stopping_criterion=None,
+    max_restarts=100,
+    sort_function=None,
+    p=None,
+    ortho="cgs_dgks",
+    dtype=None,
+    generator=None,
+    v0=None,
+    device=None,
+    lock="soft",
+    refine="auto",
+    block_size=1,
+    mesh=None,
+    checkpoint_path=None,
+    resume=False,
+):
+    """Compute a partial Schur decomposition ``A Q ~= Q T`` with the
+    Krylov-Schur algorithm on ``A``'s device.
+
+    Parameters
+    ----------
+    A : an operator of this package, a torch tensor, a NumPy array or a
+        SciPy sparse matrix (see :func:`arnoldi_tpu_torch.as_operator`).
+    nev : number of wanted eigenpairs.
+    max_dim : Krylov space dimension m; default ``min(max(2*nev+1, 20), n)``.
+    stopping_criterion : relative-residual tolerance; default
+        ``sqrt(eps(A.dtype))``.
+    max_restarts : restart budget; raises ``ValueError`` on exhaustion.
+    sort_function : "which" selector, a callable or an ARPACK string
+        ("LM", "LR", ...); default largest magnitude.
+    p : truncation size.  None runs the adaptive retention policy of the
+        JAX device path (locked prefix plus half the unconverged window,
+        rounded up to a quantum of ``max(8, ceil((max_dim - nev) / 3))``);
+        an integer pins it.
+    ortho : "cgs_dgks" (default), "cgs2", "cgs" or "cgs2_pallas" (the same
+        function as "cgs2").
+    dtype : work dtype, float32 or float64; default the operator's.  The
+        operator's values are cast to it (the JAX version casts each
+        matvec's result instead).
+    generator : CPU ``torch.Generator`` for the start vector; default
+        seeded with 0.
+    v0 : explicit start vector overriding ``generator``.
+    device : where to run; None means the operator's own device (NumPy and
+        SciPy input then raise, having none).
+    lock : "soft" (default) or "hard", as in the JAX package.
+    refine : "auto" (default) or None.  A float32 solve to a tolerance
+        below 1e-6, where the JAX package would continue in double-word
+        arithmetic, raises ``NotImplementedError``; so does "dw".
+    block_size, mesh, checkpoint_path, resume : accepted for signature
+        parity; anything but their defaults raises ``NotImplementedError``.
+
+    Returns
+    -------
+    schur_vecs : (n, nev) tensor Q on the device.
+    schur_mat : (nev, nev) tensor T, quasi-upper-triangular, ordered by
+        ``sort_function`` (nev+1 when a 2x2 block straddles the cut).
+    history : ``History`` with per-eigenvalue matvec/restart counts, the
+        per-restart residual trace and ``phases``.
+    """
+    if block_size != 1:
+        raise _not_ported("block_size > 1 (the block driver)",
+                          "Queue 1 item 5")
+    if mesh is not None:
+        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 13")
+    if checkpoint_path is not None or resume:
+        raise _not_ported("checkpoint_path=/resume=", "Queue 1 item 14")
+    if lock not in ("soft", "hard"):
+        raise ValueError(f"lock={lock!r}: expected 'soft' or 'hard'")
+
+    op = as_operator(A, device=device)
+    n = op.shape[0]
+    if op.shape[1] != n:
+        raise ValueError(f"partial_schur needs a square operator, got {op.shape}")
+    tol = (default_invariant_tol(op.dtype) if stopping_criterion is None
+           else float(stopping_criterion))
+    if sort_function is None:
+        sort_function = sorting.arg_largest_magnitude
+    else:
+        sort_function = sorting.sort_function_for(sort_function)
+    if max_restarts <= 0:
+        raise ValueError(f"max_restarts must be positive, got {max_restarts}")
+    if max_dim is None:
+        max_dim = min(max(2 * nev + 1, 20), n)
+    if p is not None and not nev <= p < max_dim:
+        raise ValueError(f"need nev <= p < max_dim, got {nev}, {p}, {max_dim}")
+    if not 0 < nev < max_dim <= n:
+        raise ValueError(f"need 0 < nev < max_dim <= n, got {nev}, {max_dim}, {n}")
+
+    wdtype = _work_dtype(op.dtype, dtype)
+    if refine == "dw" or (refine == "auto" and wdtype == torch.float32
+                          and tol < 1e-6):
+        raise _not_ported("refine (a float32 solve below tol 1e-6 continued "
+                          "in higher precision)", "Queue 1 item 8")
+    if refine not in ("auto", None, "none", False):
+        raise ValueError(f"refine={refine!r}: expected 'auto', 'dw' or None")
+    check_matmul_precision(wdtype, op.device)
+    op = cast_operator(op, wdtype)
+    dev = op.device
+    np_wdtype = numpy_dtype(wdtype)
+
+    history = History.from_k(nev)
+    clock = phase_clock()
+
+    with clock("workspace_setup"):
+        V = torch.zeros((max_dim + 1, n), dtype=wdtype, device=dev)
+        V_alt = torch.empty_like(V)
+        H = torch.zeros((max_dim + 1, max_dim), dtype=wdtype, device=dev)
+        if v0 is None:
+            v0 = rand_normalized_vector(n, wdtype, device=dev,
+                                        generator=generator)
+        else:
+            if (v0.is_complex() if torch.is_tensor(v0)
+                    else np.iscomplexobj(v0)):
+                raise _not_ported("a complex start vector", "Queue 1 item 5")
+            v0 = torch.as_tensor(v0).to(device=dev, dtype=wdtype)
+            v0 = v0 / torch.linalg.vector_norm(v0)
+        V[0] = v0
+
+    with clock("initial_expand"):
+        V, H, m = arnoldi_expand(op, V, H, tol, start_dim=0, max_dim=max_dim,
+                                 ortho=ortho)
+    total_matvecs = m
+
+    has_converged = False
+    nev_ret = nev
+    hard_lock = lock == "hard"
+    k_lock = 0
+    adaptive = p is None
+    # The truncated leading block of H, kept in float64 on the host between
+    # restarts (the device copy is in the work dtype and only gains columns).
+    H_trunc_hp = None
+    prev_pa = 0
+    T_out = None
+    for restart in range(max_restarts):
+        happy_breakdown = m != max_dim
+        if happy_breakdown and m < nev:
+            raise ValueError(
+                f"Invariant subspace of dimension {m} < nev={nev} found; "
+                "start vector lives in a too-small invariant subspace")
+
+        with clock("h_pull"):
+            H_host = H.cpu().numpy().astype(np.float64)
+        if H_trunc_hp is not None:
+            H_host[: prev_pa + 1, :prev_pa] = H_trunc_hp
+        ka = k_lock
+        ma = m - ka
+        H_active = H_host[ka:m, ka:m]
+
+        # Ordered real Schur form of the active window (2x2 blocks for
+        # conjugate pairs).
+        with clock("rotate"):
+            T2a, Qa, eigs_a = dense_tier.ordered_schur_real(
+                H_active, sort_function=sort_function)
+        b_starts, b_sizes, in_block = _schur_blocks(T2a)
+
+        # |h_{m+1,m} Qa[last, i]| / |lambda_i|; a conjugate pair converges
+        # as a unit on the norm of its two last-row entries.
+        coupling = np.abs(H_host[m, m - 1])
+        last_row = np.abs(Qa[ma - 1, :]).astype(np.float64)
+        for s, sz in zip(b_starts, b_sizes):
+            if sz == 2:
+                last_row[s] = last_row[s + 1] = np.hypot(Qa[ma - 1, s],
+                                                         Qa[ma - 1, s + 1])
+        denom = np.abs(eigs_a)
+        denom = np.where(denom == 0, 1.0, denom)
+        approximate_convergence = coupling * last_row / denom
+
+        # Newly converged leading prefix of the active window; a pair's two
+        # positions share one residual, so the scan never stops between them.
+        nc = 0
+        while nc < ma and approximate_convergence[nc] <= tol:
+            nc += 1
+        if nc != ma and in_block[nc]:
+            raise RuntimeError(
+                "prefix scan split a conjugate pair: unequal pair residuals")
+        k_new = ka + nc
+
+        for k in range(ka, min(k_new, nev)):
+            if history.matvecs[k] == 0:
+                history.matvecs[k] = total_matvecs
+                history.restarts[k] = restart + 1
+        rem = nev - ka
+        history.residual_trace.append(
+            float(np.max(approximate_convergence[:rem])) if rem > 0 else 0.0)
+
+        if k_new >= nev:
+            has_converged = True
+            for k in range(nev):
+                if history.matvecs[k] == 0:
+                    history.matvecs[k] = total_matvecs
+                    history.restarts[k] = restart + 1
+            # A 2x2 block straddling the nev boundary cannot be cut: return
+            # nev+1 pairs (ARPACK's k/k+1 contract for real problems).
+            nev_ret = nev + 1 if in_block[nev - ka] else nev
+            cr = nev_ret - ka
+            Qp_full = np.zeros((m, nev_ret))
+            Qp_full[:ka, :ka] = np.eye(ka)
+            Qp_full[ka:, ka:] = Qa[:, :cr]
+            T_out = np.zeros((nev_ret, nev_ret))
+            T_out[:ka, :ka] = H_host[:ka, :ka]
+            if ka:
+                T_out[:ka, ka:] = H_host[:ka, ka:m] @ Qa[:, :cr]
+            T_out[ka:, ka:] = T2a[:cr, :cr]
+            with clock("final_truncate"):
+                V, V_alt = _truncate(
+                    V, V_alt, torch.from_numpy(Qp_full.astype(np_wdtype)).to(dev),
+                    m, nev_ret)
+            if ka:
+                # Locked pairs froze in lock order; re-sort the converged
+                # output globally, as the no-locking path presents it.
+                T_out, Qs, _ = dense_tier.ordered_schur_real(
+                    T_out, sort_function=sort_function)
+                Qs = torch.from_numpy(Qs.astype(np_wdtype)).to(dev)
+                V[:nev_ret] = Qs.T @ V[:nev_ret]
+            break
+
+        # Truncation size.  Adaptive: keep the locked prefix plus half the
+        # unconverged window, at least ARPACK's nev + min(nconv, (m-nev)/2),
+        # rounded up to the device path's quantum q.  q decides which Schur
+        # vectors are kept, so it stays the JAX device path's value.
+        if adaptive:
+            raw = max(k_new + max((m - k_new) // 2, 1),
+                      nev + min(k_new, max((m - nev) // 2, 1)))
+            q = max(8, -(-(max_dim - nev) // 3))
+            pa = min(-(-raw // q) * q, m - 1)
+            pa = max(pa, min(k_new + 1, m - 1))     # window never empty
+        else:
+            pa = min(p, m) if happy_breakdown else p
+        ca = pa - ka
+        resolved = False
+        if in_block[ca]:
+            # Keep pa fixed by relocating a 1x1 block across the cut.
+            try:
+                T2a, Qa = dense_tier.resolve_straddle(T2a, Qa, ca,
+                                                      min_keep=max(rem, nc))
+                resolved = True
+            except RuntimeError:
+                pass  # no prefix-safe relocation: step the cut instead
+            if resolved:
+                b_starts, b_sizes, in_block = _schur_blocks(T2a)
+        if in_block[ca] and not resolved:
+            floor = max(rem, nc + 1, 1)   # never drop wanted/locked work
+            limit = ma if happy_breakdown else ma - 1
+            cand = ca
+            while cand + 1 <= limit and in_block[cand + 1]:
+                cand += 1
+            if cand + 1 <= limit and not in_block[cand + 1]:
+                ca = cand + 1
+            else:
+                cand = ca
+                while cand - 1 >= floor and in_block[cand - 1]:
+                    cand -= 1
+                if cand - 1 >= floor and not in_block[cand - 1]:
+                    ca = cand - 1
+                else:
+                    raise ValueError(
+                        "Cannot truncate without splitting a conjugate "
+                        "pair; increase max_dim or p")
+            pa = ka + ca
+
+        # Truncated projected matrix.  The rotation is block diagonal --
+        # identity on the locked prefix, Qa[:, :ca] on the active window.
+        Qp_full = np.zeros((m, pa))
+        Qp_full[:ka, :ka] = np.eye(ka)
+        Qp_full[ka:, ka:] = Qa[:, :ca]
+        H_new = np.zeros_like(H_host)
+        H_new[:ka, :ka] = H_host[:ka, :ka]
+        if ka:
+            H_new[:ka, ka:pa] = H_host[:ka, ka:m] @ Qa[:, :ca]
+        H_new[ka:pa, ka:pa] = T2a[:ca, :ca]
+        # Coupling row: the residual's projections rotated by the active
+        # rotation, with the newly converged prefix's entries (below
+        # tol*|lambda|) zeroed so those pairs decouple for good.
+        H_new[pa, ka:pa] = H_host[m, ka:m] @ Qa[:, :ca]
+        H_new[pa, :k_new] = 0.0
+        H_trunc_hp = H_new[: pa + 1, :pa].copy()
+        prev_pa = pa
+        if hard_lock:
+            k_lock = k_new
+
+        with clock("truncate"):
+            V, V_alt = _truncate(
+                V, V_alt, torch.from_numpy(Qp_full.astype(np_wdtype)).to(dev),
+                m, pa)
+            H = torch.from_numpy(H_new.astype(np_wdtype)).to(dev)
+        with clock("expand"):
+            V, H, m_new = arnoldi_expand(op, V, H, tol, start_dim=pa,
+                                         max_dim=max_dim, ortho=ortho)
+        total_matvecs += m_new - pa
+        m = m_new
+
+    history.total = total_matvecs
+    if not has_converged:
+        raise ValueError("Has not converged !")
+    history.phases = clock.report()
+    schur_vecs = V[:nev_ret].clone().T   # back to the (n, nev) contract
+    schur_mat = torch.from_numpy(T_out.astype(np_wdtype)).to(dev)
+    return schur_vecs, schur_mat, history
+
+
+def eigenpairs_from_partial_schur(schur_vecs, schur_mat):
+    """Eigenpairs from a partial Schur decomposition.
+
+    Returns ``(values, vectors)``: ``values`` a NumPy array, ``vectors`` a
+    tensor on ``schur_vecs``' device with unit-norm columns (complex when
+    the eigenvalues are).
+    """
+    T = schur_mat.cpu().numpy() if torch.is_tensor(schur_mat) \
+        else np.asarray(schur_mat)
+    if np.iscomplexobj(T) and np.allclose(T, np.triu(T)):
+        values, S = dense_tier.eig_from_schur(T)
+    else:
+        values, S = dense_tier.eig(T)
+    Q = torch.as_tensor(schur_vecs)
+    if np.iscomplexobj(S) and not Q.is_complex():
+        # Real basis, complex eigenvectors of T: two real matmuls.
+        vr = Q @ torch.from_numpy(np.ascontiguousarray(S.real)).to(Q)
+        vi = Q @ torch.from_numpy(np.ascontiguousarray(S.imag)).to(Q)
+        vectors = torch.complex(vr, vi)
+    else:
+        vectors = Q @ torch.from_numpy(np.ascontiguousarray(S)).to(Q)
+    norms = torch.linalg.vector_norm(vectors, dim=0)
+    return values, vectors / torch.where(norms == 0, 1.0, norms)[None, :]
