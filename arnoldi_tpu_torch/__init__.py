@@ -8,11 +8,13 @@ lives on an explicit device: CUDA tensors go through the kernels in
 plain PyTorch versions.
 """
 
-from .linop import BandedOperator, DenseOperator, EllOperator, as_operator
+from .linop import (BandedOperator, BsrOperator, DenseOperator, EllOperator,
+                    as_operator)
 from .solvers.krylov_schur import eigenpairs_from_partial_schur, partial_schur
 
 __all__ = [
     "BandedOperator",
+    "BsrOperator",
     "DenseOperator",
     "EllOperator",
     "as_operator",

@@ -10,7 +10,8 @@ run on bit-identical operator arrays.  Nothing here imports JAX.
 import numpy as np
 import torch
 
-from .linop import BandedOperator, DenseOperator, EllOperator
+from .linop import BandedOperator, BsrOperator, DenseOperator, EllOperator
+from .ops.kernels.spmv_bsr import bsr_window
 
 
 def _tensor(a, device):
@@ -38,6 +39,14 @@ def operator_from_reference(kind, leaves, aux, *, device):
         return EllOperator(_tensor(data, device),
                            _tensor(np.asarray(cols, np.int32), device),
                            int(nnz_stored), n_cols=int(n_cols))
+    if kind == "BsrOperator":
+        blocks, block_cols = (np.asarray(a) for a in leaves)
+        block_cols = block_cols.astype(np.int32)
+        nnz_stored, n_cols, n_rows = aux
+        return BsrOperator(_tensor(blocks, device), _tensor(block_cols, device),
+                           int(nnz_stored), n_cols=int(n_cols),
+                           n_rows=int(n_rows),
+                           window=bsr_window(blocks, block_cols, device=device))
     raise NotImplementedError(
         f"{kind} has no counterpart in arnoldi_tpu_torch yet (ROADMAP.md, "
         "Queue 1 item 2)")

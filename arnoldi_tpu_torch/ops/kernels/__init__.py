@@ -2,20 +2,34 @@
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors, and counts its launches in a ``launches``
-attribute.  :data:`KERNELS` lists them with the TPU kernel each replaces.
+attribute.  :data:`KERNELS` lists them with the TPU kernel each replaces;
+a ``*_cols`` entry is the b-column form (b columns as the rows of a
+``(b, n)`` array, each stored matrix value read once for all b) that the
+block driver uses.
 """
 
-from . import ortho_fused, spmv_banded, spmv_ell
+from . import ortho_fused, spmv_banded, spmv_bsr, spmv_ell
 from ._build import build
+
+_DIA = ("arnoldi_tpu_torch/csrc/spmv_banded.cu",
+        "arnoldi_tpu/ops/pallas/spmv_banded.py:82")
+_ELL = ("arnoldi_tpu_torch/csrc/spmv_ell.cu",
+        "arnoldi_tpu/ops/pallas/spmv_ell.py:67")
+_BSR = ("arnoldi_tpu_torch/csrc/spmv_bsr.cu",
+        "arnoldi_tpu/ops/pallas/spmv_bsr.py:92")
+_BSR_WINDOW = ("arnoldi_tpu_torch/csrc/spmv_bsr.cu",
+               "arnoldi_tpu/ops/pallas/spmv_bsr.py:269")
 
 #: name -> (wrapper, CUDA source, the Pallas kernel it replaces)
 KERNELS = {
-    "spmv_dia": (spmv_banded.banded_matvec,
-                 "arnoldi_tpu_torch/csrc/spmv_banded.cu",
-                 "arnoldi_tpu/ops/pallas/spmv_banded.py:82"),
-    "spmv_ell": (spmv_ell.ell_matvec,
-                 "arnoldi_tpu_torch/csrc/spmv_ell.cu",
-                 "arnoldi_tpu/ops/pallas/spmv_ell.py:67"),
+    "spmv_dia": (spmv_banded.banded_matvec, *_DIA),
+    "spmv_dia_cols": (spmv_banded.banded_matmat, *_DIA),
+    "spmv_ell": (spmv_ell.ell_matvec, *_ELL),
+    "spmv_ell_cols": (spmv_ell.ell_matmat, *_ELL),
+    "spmv_bsr": (spmv_bsr.bsr_matvec, *_BSR),
+    "spmv_bsr_cols": (spmv_bsr.bsr_matmat, *_BSR),
+    "spmv_bsr_window": (spmv_bsr.bsr_window_matvec, *_BSR_WINDOW),
+    "spmv_bsr_window_cols": (spmv_bsr.bsr_window_matmat, *_BSR_WINDOW),
     "masked_project": (ortho_fused.masked_project,
                        "arnoldi_tpu_torch/csrc/ortho_fused.cu",
                        "arnoldi_tpu/ops/pallas/ortho_fused.py:106"),

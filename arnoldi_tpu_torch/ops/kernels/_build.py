@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-All of ``arnoldi_tpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a``
-into one shared library with a plain C interface,
+Each of ``arnoldi_tpu_torch/csrc/*.cu`` compiles with its own ``nvcc`` for
+``sm_90a`` (all started together), and the objects link into one shared
+library with a plain C interface,
 ``<checkout>/build/arnoldi_tpu_torch/libkernels.so``, which is loaded with
 ``ctypes``.  The build happens on the first kernel launch (never at import),
 and again whenever a source is newer than the library.  No PyTorch header is
@@ -25,7 +26,7 @@ BUILD_DIR = _PKG_DIR.parent / "build" / "arnoldi_tpu_torch"
 LIB_PATH = BUILD_DIR / "libkernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -34,10 +35,17 @@ _p = ctypes.c_void_p
 _i64 = ctypes.c_longlong
 _i32 = ctypes.c_int
 _SIGNATURES = {
-    # bands, x, y, n, k, offsets (host int64[k]), stream
-    "arn_spmv_dia": [_p, _p, _p, _i64, _i32, _p, _p],
-    # data, cols, x, y, n_rows, L, stream
-    "arn_spmv_ell": [_p, _p, _p, _p, _i64, _i32, _p],
+    # bands, x, y, n, k, offsets (host int64[k]), nb, stream
+    "arn_spmv_dia": [_p, _p, _p, _i64, _i32, _p, _i32, _p],
+    # data, cols, x, y, n_rows, n_cols, L, nb, stream
+    "arn_spmv_ell": [_p, _p, _p, _p, _i64, _i64, _i32, _i32, _p],
+    # blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb, stream
+    "arn_spmv_bsr": [_p, _p, _p, _p, _i64, _i32, _i32, _i32, _i64, _i64, _i32,
+                     _p],
+    # blocks, window cols, tile_base, x, y, n_brow, L, r, c, n_rows, n_cols,
+    # nb, tile_brows, Wt, columns per pass, stream
+    "arn_spmv_bsr_window": [_p, _p, _p, _p, _p, _i64, _i32, _i32, _i32, _i64,
+                            _i64, _i32, _i32, _i32, _i32, _p],
     # Vt, w, c, partials, n, mp1, n_active, chunk, n_chunks, stream
     "arn_masked_project": [_p, _p, _p, _p, _i64, _i32, _i32, _i32, _i32, _p],
     # Vt, w, c, w_out, partials, norm_sq, n, n_active, n_blocks, stream
@@ -79,21 +87,39 @@ def _build_locked():
     if not _stale():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # Compile to a per-process name and rename: a concurrent build must never
+    # Compile to per-process names and rename: a concurrent build must never
     # hand a half-written library to a loader.
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sorted(_CSRC.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
+    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}")
+    srcs = sorted(_CSRC.glob("*.cu"))
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in srcs]
+    nvcc = _nvcc()
+    procs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
+        for src, obj in zip(srcs, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [proc.communicate()[0] for proc in procs]
+        for src, proc, log in zip(srcs, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({proc.returncode}):\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+                f"nvcc link failed ({link.returncode}):\n{link.stdout}{link.stderr}")
         os.replace(tmp, LIB_PATH)
     finally:
-        if tmp.exists():
-            tmp.unlink()
-    return proc.stdout + proc.stderr
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (tmp, *objs):
+            if path.exists():
+                path.unlink()
+    return "".join(logs)
 
 
 def library():

@@ -1,9 +1,12 @@
-"""Krylov-Schur restarted eigensolver, scalar device path.
+"""Krylov-Schur restarted eigensolver, device path, scalar and block.
 
 Counterpart of ``partial_schur`` in ``arnoldi_tpu/solvers/krylov_schur.py``
 (its device path, lines 541-897): repeat [Arnoldi expand to m | ordered
 Schur of the projected H on the host | truncate the basis to p rows carrying
-the residual vector | test ``|h_{m+1,m} q_{m,i}| / |t_ii| < tol``].
+the residual vector | test ``|h_{m+1,m} q_{m,i}| / |t_ii| < tol``].  With
+``block_size = b > 1`` the expansion takes b vectors a step (the operator's
+b-column kernels and ``block_cgs2``), the residual is a block of b rows,
+and the residual estimates are norms of the b coupling rows.
 
 Everything n-sized (the expansion and the truncation gemm) runs on the
 operator's device; everything m-sized runs on the host in float64 through
@@ -13,8 +16,8 @@ real work dtype with the real Schur form (2x2 blocks for conjugate pairs),
 as the TPU path and the host tier do.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): complex dtypes, ``block_size > 1``, ``mesh``, checkpointing,
-double-word refinement, and the host tier for small problems.
+item): complex dtypes, ``mesh``, checkpointing, double-word refinement,
+and the host tier for small problems.
 """
 
 import numpy as np
@@ -24,8 +27,10 @@ from .._host import History, dense_tier, sorting
 from ..device import check_matmul_precision, numpy_dtype, torch_dtype
 from ..linop import as_operator, cast_operator
 from ..utils.profiling import phase_clock
+from ..ops.ortho import block_cgs2
 from ..utils.random import rand_normalized_vector
-from .decomposition import arnoldi_expand, default_invariant_tol
+from .decomposition import (arnoldi_expand, block_arnoldi_expand,
+                            default_invariant_tol)
 
 
 def _not_ported(what, item):
@@ -54,14 +59,15 @@ def _schur_blocks(T):
     return starts, sizes, in_block
 
 
-def _truncate(V, V_alt, Qp, m, p):
-    """``V_alt[:p] = Qp^T V[:m]`` with the residual row ``V[m]`` carried to
-    ``V_alt[p]``; returns the swapped pair ``(V_alt, V)``.  Rows past
-    ``p + 1`` of the new basis are stale: the expansion reads rows ``<= j``
-    only.  Writing into the second workspace avoids an (m+1, n) allocation
-    per restart."""
+def _truncate(V, V_alt, Qp, m, p, carry=1):
+    """``V_alt[:p] = Qp^T V[:m]`` with the ``carry`` residual rows
+    ``V[m:m+carry]`` (1, or b for the block driver) carried to
+    ``V_alt[p:p+carry]``; returns the swapped pair ``(V_alt, V)``.  Rows
+    past ``p + carry`` of the new basis are stale: the expansions read the
+    rows before their step only.  Writing into the second workspace avoids
+    an (m+b, n) allocation per restart."""
     torch.matmul(Qp.T, V[:m], out=V_alt[:p])
-    V_alt[p] = V[m]
+    V_alt[p:p + carry] = V[m:m + carry]
     return V_alt, V
 
 
@@ -85,6 +91,7 @@ def partial_schur(
     mesh=None,
     checkpoint_path=None,
     resume=False,
+    _start_block=None,
 ):
     """Compute a partial Schur decomposition ``A Q ~= Q T`` with the
     Krylov-Schur algorithm on ``A``'s device.
@@ -94,7 +101,8 @@ def partial_schur(
     A : an operator of this package, a torch tensor, a NumPy array or a
         SciPy sparse matrix (see :func:`arnoldi_tpu_torch.as_operator`).
     nev : number of wanted eigenpairs.
-    max_dim : Krylov space dimension m; default ``min(max(2*nev+1, 20), n)``.
+    max_dim : Krylov space dimension m; default ``min(max(2*nev+1, 20), n)``,
+        rounded up to a multiple of ``block_size``.
     stopping_criterion : relative-residual tolerance; default
         ``sqrt(eps(A.dtype))``.
     max_restarts : restart budget; raises ``ValueError`` on exhaustion.
@@ -103,23 +111,35 @@ def partial_schur(
     p : truncation size.  None runs the adaptive retention policy of the
         JAX device path (locked prefix plus half the unconverged window,
         rounded up to a quantum of ``max(8, ceil((max_dim - nev) / 3))``);
-        an integer pins it.
+        an integer pins it.  The block driver has no adaptive policy: its
+        default is ``nev + max(5, b)`` rounded up to a multiple of b (at
+        most ``max_dim - b``), and p must be a multiple of b.
     ortho : "cgs_dgks" (default), "cgs2", "cgs" or "cgs2_pallas" (the same
         function as "cgs2").
     dtype : work dtype, float32 or float64; default the operator's.  The
         operator's values are cast to it (the JAX version casts each
         matvec's result instead).
-    generator : CPU ``torch.Generator`` for the start vector; default
-        seeded with 0.
-    v0 : explicit start vector overriding ``generator``.
+    generator : CPU ``torch.Generator`` for the start vector and, for the
+        block driver, the b - 1 further start rows; default seeded with 0.
+    v0 : explicit start vector overriding ``generator`` (the block driver
+        still draws its b - 1 further rows from it).
     device : where to run; None means the operator's own device (NumPy and
         SciPy input then raise, having none).
-    lock : "soft" (default) or "hard", as in the JAX package.
+    lock : "soft" (default) or "hard", as in the JAX package; the block
+        driver always locks softly.
     refine : "auto" (default) or None.  A float32 solve to a tolerance
         below 1e-6, where the JAX package would continue in double-word
         arithmetic, raises ``NotImplementedError``; so does "dw".
-    block_size, mesh, checkpoint_path, resume : accepted for signature
-        parity; anything but their defaults raises ``NotImplementedError``.
+    block_size : ``b > 1`` runs block Krylov-Schur: b vectors a step, two
+        block-gemm projections and CholQR2 (``block_cgs2``).  Finds
+        eigenvalues of multiplicity up to b, and reads the basis once per b
+        matvecs.  Repeated saturation of the block expansion without
+        convergence raises ``ValueError``.
+    mesh, checkpoint_path, resume : accepted for signature parity; anything
+        but their defaults raises ``NotImplementedError``.
+    _start_block : private, for tests: a (b, n) block replacing v0 and the
+        b - 1 drawn rows of the block driver's start block, which is then
+        orthonormalized as the drawn one would be.
 
     Returns
     -------
@@ -129,9 +149,11 @@ def partial_schur(
     history : ``History`` with per-eigenvalue matvec/restart counts, the
         per-restart residual trace and ``phases``.
     """
-    if block_size != 1:
-        raise _not_ported("block_size > 1 (the block driver)",
-                          "Queue 1 item 5")
+    b = int(block_size)
+    if b < 1:
+        raise ValueError(f"block_size must be positive, got {block_size}")
+    if _start_block is not None and b == 1:
+        raise ValueError("_start_block is for the block driver (block_size > 1)")
     if mesh is not None:
         raise _not_ported("mesh= (sharded solves)", "Queue 1 item 13")
     if checkpoint_path is not None or resume:
@@ -153,6 +175,12 @@ def partial_schur(
         raise ValueError(f"max_restarts must be positive, got {max_restarts}")
     if max_dim is None:
         max_dim = min(max(2 * nev + 1, 20), n)
+    if b > 1:
+        max_dim = -(-max_dim // b) * b
+        if p is None:
+            p = min(-(-(nev + max(5, b)) // b) * b, max_dim - b)
+        if p % b:
+            raise ValueError(f"p={p} must be a multiple of block_size={b}")
     if p is not None and not nev <= p < max_dim:
         raise ValueError(f"need nev <= p < max_dim, got {nev}, {p}, {max_dim}")
     if not 0 < nev < max_dim <= n:
@@ -173,10 +201,12 @@ def partial_schur(
     history = History.from_k(nev)
     clock = phase_clock()
 
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
     with clock("workspace_setup"):
-        V = torch.zeros((max_dim + 1, n), dtype=wdtype, device=dev)
+        V = torch.zeros((max_dim + b, n), dtype=wdtype, device=dev)
         V_alt = torch.empty_like(V)
-        H = torch.zeros((max_dim + 1, max_dim), dtype=wdtype, device=dev)
+        H = torch.zeros((max_dim + b, max_dim), dtype=wdtype, device=dev)
         if v0 is None:
             v0 = rand_normalized_vector(n, wdtype, device=dev,
                                         generator=generator)
@@ -187,17 +217,35 @@ def partial_schur(
             v0 = torch.as_tensor(v0).to(device=dev, dtype=wdtype)
             v0 = v0 / torch.linalg.vector_norm(v0)
         V[0] = v0
+        if b > 1:
+            # The start block: v0 and b - 1 Gaussian rows, orthonormalized.
+            if _start_block is None:
+                extra = torch.randn((b - 1, n), generator=generator,
+                                    dtype=wdtype).to(dev)
+                W0 = torch.cat([v0[None, :], extra])
+            else:
+                W0 = torch.as_tensor(_start_block).to(device=dev, dtype=wdtype)
+                if W0.shape != (b, n):
+                    raise ValueError(f"_start_block must be ({b}, {n}), got "
+                                     f"{tuple(W0.shape)}")
+            V[:b] = block_cgs2(V, W0, 0, tol=tol)[1]
 
     with clock("initial_expand"):
-        V, H, m = arnoldi_expand(op, V, H, tol, start_dim=0, max_dim=max_dim,
-                                 ortho=ortho)
+        if b > 1:
+            V, H, jb = block_arnoldi_expand(op, V, H, tol, start_block=0,
+                                            n_blocks=max_dim // b, b=b)
+            m = jb * b
+        else:
+            V, H, m = arnoldi_expand(op, V, H, tol, start_dim=0,
+                                     max_dim=max_dim, ortho=ortho)
     total_matvecs = m
 
     has_converged = False
     nev_ret = nev
-    hard_lock = lock == "hard"
+    hard_lock = lock == "hard" and b == 1
     k_lock = 0
-    adaptive = p is None
+    adaptive = p is None and b == 1
+    saturated = 0   # consecutive unconverged saturations (block driver)
     # The truncated leading block of H, kept in float64 on the host between
     # restarts (the device copy is in the work dtype and only gains columns).
     H_trunc_hp = None
@@ -213,7 +261,7 @@ def partial_schur(
         with clock("h_pull"):
             H_host = H.cpu().numpy().astype(np.float64)
         if H_trunc_hp is not None:
-            H_host[: prev_pa + 1, :prev_pa] = H_trunc_hp
+            H_host[: prev_pa + b, :prev_pa] = H_trunc_hp
         ka = k_lock
         ma = m - ka
         H_active = H_host[ka:m, ka:m]
@@ -225,17 +273,26 @@ def partial_schur(
                 H_active, sort_function=sort_function)
         b_starts, b_sizes, in_block = _schur_blocks(T2a)
 
-        # |h_{m+1,m} Qa[last, i]| / |lambda_i|; a conjugate pair converges
-        # as a unit on the norm of its two last-row entries.
-        coupling = np.abs(H_host[m, m - 1])
-        last_row = np.abs(Qa[ma - 1, :]).astype(np.float64)
-        for s, sz in zip(b_starts, b_sizes):
-            if sz == 2:
-                last_row[s] = last_row[s + 1] = np.hypot(Qa[ma - 1, s],
-                                                         Qa[ma - 1, s + 1])
+        # |h_{m+1,m} Qa[last, i]| / |lambda_i|, or for the block driver
+        # ||B Qa[:, i]|| / |lambda_i| with B the b coupling rows; a
+        # conjugate pair converges as a unit on the norm of its two entries.
+        if b > 1:
+            residuals = np.linalg.norm(H_host[m:m + b, :m] @ Qa,
+                                       axis=0).astype(np.float64)
+            for s, sz in zip(b_starts, b_sizes):
+                if sz == 2:
+                    residuals[s] = residuals[s + 1] = np.hypot(
+                        residuals[s], residuals[s + 1])
+        else:
+            residuals = np.abs(Qa[ma - 1, :]).astype(np.float64)
+            for s, sz in zip(b_starts, b_sizes):
+                if sz == 2:
+                    residuals[s] = residuals[s + 1] = np.hypot(
+                        Qa[ma - 1, s], Qa[ma - 1, s + 1])
+            residuals *= np.abs(H_host[m, m - 1])
         denom = np.abs(eigs_a)
         denom = np.where(denom == 0, 1.0, denom)
-        approximate_convergence = coupling * last_row / denom
+        approximate_convergence = residuals / denom
 
         # Newly converged leading prefix of the active window; a pair's two
         # positions share one residual, so the scan never stops between them.
@@ -276,7 +333,7 @@ def partial_schur(
             with clock("final_truncate"):
                 V, V_alt = _truncate(
                     V, V_alt, torch.from_numpy(Qp_full.astype(np_wdtype)).to(dev),
-                    m, nev_ret)
+                    m, nev_ret, carry=b)
             if ka:
                 # Locked pairs froze in lock order; re-sort the converged
                 # output globally, as the no-locking path presents it.
@@ -285,6 +342,25 @@ def partial_schur(
                 Qs = torch.from_numpy(Qs.astype(np_wdtype)).to(dev)
                 V[:nev_ret] = Qs.T @ V[:nev_ret]
             break
+
+        # Block driver: a saturated expansion without convergence (rank
+        # deficiency, e.g. a multiplicity beyond the reachable space).  The
+        # next expansion runs with a zero breakdown tolerance so that the
+        # block's rounding noise extends the space (the block analog of
+        # ARPACK's random restart); only repeated saturation with a stagnant
+        # residual trace is fatal.
+        reseed = False
+        if b > 1 and happy_breakdown and min(p, m) >= m:
+            saturated += 1
+            rt = history.residual_trace
+            if saturated >= 3 and len(rt) >= 3 and not rt[-1] < 0.5 * rt[-3]:
+                raise ValueError(
+                    f"Krylov expansion saturated at dimension {m} without "
+                    f"convergence (block rank deficiency); reduce "
+                    f"block_size or max_dim, or use the scalar driver")
+            reseed = True
+        else:
+            saturated = 0
 
         # Truncation size.  Adaptive: keep the locked prefix plus half the
         # unconverged window, at least ARPACK's nev + min(nconv, (m-nev)/2),
@@ -300,7 +376,7 @@ def partial_schur(
             pa = min(p, m) if happy_breakdown else p
         ca = pa - ka
         resolved = False
-        if in_block[ca]:
+        if b == 1 and in_block[ca]:
             # Keep pa fixed by relocating a 1x1 block across the cut.
             try:
                 T2a, Qa = dense_tier.resolve_straddle(T2a, Qa, ca,
@@ -311,19 +387,21 @@ def partial_schur(
             if resolved:
                 b_starts, b_sizes, in_block = _schur_blocks(T2a)
         if in_block[ca] and not resolved:
+            # Step the cut by b (1 for the scalar driver), upward first; a
+            # block step can land on another pair, so keep stepping.
             floor = max(rem, nc + 1, 1)   # never drop wanted/locked work
             limit = ma if happy_breakdown else ma - 1
             cand = ca
-            while cand + 1 <= limit and in_block[cand + 1]:
-                cand += 1
-            if cand + 1 <= limit and not in_block[cand + 1]:
-                ca = cand + 1
+            while cand + b <= limit and in_block[cand + b]:
+                cand += b
+            if cand + b <= limit and not in_block[cand + b]:
+                ca = cand + b
             else:
                 cand = ca
-                while cand - 1 >= floor and in_block[cand - 1]:
-                    cand -= 1
-                if cand - 1 >= floor and not in_block[cand - 1]:
-                    ca = cand - 1
+                while cand - b >= floor and in_block[cand - b]:
+                    cand -= b
+                if cand - b >= floor and not in_block[cand - b]:
+                    ca = cand - b
                 else:
                     raise ValueError(
                         "Cannot truncate without splitting a conjugate "
@@ -340,12 +418,12 @@ def partial_schur(
         if ka:
             H_new[:ka, ka:pa] = H_host[:ka, ka:m] @ Qa[:, :ca]
         H_new[ka:pa, ka:pa] = T2a[:ca, :ca]
-        # Coupling row: the residual's projections rotated by the active
+        # Coupling row(s): the residual's projections rotated by the active
         # rotation, with the newly converged prefix's entries (below
         # tol*|lambda|) zeroed so those pairs decouple for good.
-        H_new[pa, ka:pa] = H_host[m, ka:m] @ Qa[:, :ca]
-        H_new[pa, :k_new] = 0.0
-        H_trunc_hp = H_new[: pa + 1, :pa].copy()
+        H_new[pa:pa + b, ka:pa] = H_host[m:m + b, ka:m] @ Qa[:, :ca]
+        H_new[pa:pa + b, :k_new] = 0.0
+        H_trunc_hp = H_new[: pa + b, :pa].copy()
         prev_pa = pa
         if hard_lock:
             k_lock = k_new
@@ -353,11 +431,18 @@ def partial_schur(
         with clock("truncate"):
             V, V_alt = _truncate(
                 V, V_alt, torch.from_numpy(Qp_full.astype(np_wdtype)).to(dev),
-                m, pa)
+                m, pa, carry=b)
             H = torch.from_numpy(H_new.astype(np_wdtype)).to(dev)
+        exp_tol = 0.0 if reseed else tol
         with clock("expand"):
-            V, H, m_new = arnoldi_expand(op, V, H, tol, start_dim=pa,
-                                         max_dim=max_dim, ortho=ortho)
+            if b > 1:
+                V, H, jb = block_arnoldi_expand(op, V, H, exp_tol,
+                                                start_block=pa // b,
+                                                n_blocks=max_dim // b, b=b)
+                m_new = jb * b
+            else:
+                V, H, m_new = arnoldi_expand(op, V, H, exp_tol, start_dim=pa,
+                                             max_dim=max_dim, ortho=ortho)
         total_matvecs += m_new - pa
         m = m_new
 

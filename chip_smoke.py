@@ -6,18 +6,38 @@
 Phases (each ends in ``torch.cuda.synchronize()``; any failure exits
 nonzero before the last line is printed):
 
-0. build the CUDA kernels of ``arnoldi_tpu_torch/csrc`` with nvcc;
+0. build the CUDA kernels of ``arnoldi_tpu_torch/csrc`` with nvcc (one
+   process per source, all started together);
 1. hold each kernel against its plain PyTorch version at the main path's
-   shapes, in float32 and float64, and time both with CUDA events;
+   shapes, in float32 and float64, and time both with CUDA events: the
+   single-column kernels, the b = 8 column forms of DIA, ELL and both BSR
+   kernels, and BSR-8 on a matrix whose n is not a multiple of 8;
 2. solve A: ``partial_schur`` on ``laplace_2d(724)`` (n = 524,176, DIA
    kernel + fused CGS2), LM, k = 5, m = 80, float64, tol 1e-8, checked
    against the analytic spectrum;
 3. solve B: ``partial_schur`` on the scattered 2^20-row matrix (ELL kernel
    + fused CGS2), LR, k = 5, m = 40, float64, tol 1e-8, checked against
-   ARPACK (``scipy.sparse.linalg.eigs``).
+   ARPACK (``scipy.sparse.linalg.eigs``);
+4. solve C: the same matrix as ``format=("bsr", (8, 8))`` (BSR gather
+   kernel), scalar, same settings, checked against solve B's ARPACK values;
+5. solve D: ``random_scattered(2^20, 24, seed=2, bandwidth=1024, block=8)``
+   as BSR-8 (its window fits shared memory: BSR window kernel, b-column
+   form), ``block_size=8``, LR, k = 5, m = 40, checked against ARPACK;
+6. solve E: ``laplace_2d(724)``, ``block_size=8`` (DIA b-column kernel),
+   LM, k = 5, m = 80, p = 40, checked against the analytic spectrum;
+7. solve F: the scattered 2^20 matrix by default routing (ELL b-column
+   kernel), ``block_size=8``, LR, k = 5, m = 40, checked against solve B's
+   ARPACK values;
+8. solve G: the scattered 2^20 matrix as BSR-8, ``block_size=8`` (BSR
+   gather kernel, b-column form), checked the same way;
+9. solve H: the bandwidth-1024 matrix as BSR-8, scalar (BSR window kernel),
+   checked against solve D's ARPACK values.
 
-The kernels' launch counters are zeroed just before phase 2 and read after
-phases 2 and 3; every kernel must have launched.  The line before the last
+All solves run in float64 to tol 1e-8 and must give a Schur residual
+``||AQ - QT|| / max|lambda| <= 1e-7`` and eigenvalues within 1e-9 of the
+reference.  The kernels' launch counters are zeroed just before phase 2
+and read after phase 9; every kernel must have launched, and each solve
+must have launched the kernels of its operator.  The line before the last
 is a JSON object with each kernel's route, source, launches, error and
 times; the last line is ``{"ok": true, "device": {...}}``.  Needs no network
 and imports nothing of JAX.
@@ -93,13 +113,12 @@ def phase_kernels(mats):
     import torch
 
     from arnoldi_tpu_torch.linop import BandedOperator, EllOperator, cast_operator
-    from arnoldi_tpu_torch.ops import ortho
+    from arnoldi_tpu_torch.ops import kernels, ortho
     from arnoldi_tpu_torch.ops.kernels import ortho_fused, spmv_banded, spmv_ell
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    rec = {name: KernelRecord() for name in
-           ("spmv_dia", "spmv_ell", "masked_project", "project_update_norm")}
+    rec = {name: KernelRecord() for name in kernels.KERNELS}
 
     # The tolerances: each kernel sums the same products as its plain
     # version in another order (per-thread, shuffle tree, then split-K
@@ -181,13 +200,116 @@ def phase_kernels(mats):
                 fail("cgs_dgks: breakdown flags differ")
         del Vt, Vs
     sync()
+    phase_kernels_cols_and_bsr(mats, rec, gen)
+    sync()
     for name, r in rec.items():
-        print(f"  time {name:<20} kernel {r.ms:.4f} ms   plain {r.plain_ms:.4f} ms")
+        print(f"  time {name:<22} kernel {r.ms:.4f} ms   plain {r.plain_ms:.4f} ms")
     return rec
 
 
-def solve(label, op, nev, which, max_dim, sync_counts):
-    """One partial_schur solve on the card; returns (Q, T, hist)."""
+B_COLS = 8   # the block driver's b on the main path
+
+
+def phase_kernels_cols_and_bsr(mats, rec, gen):
+    """Phase 1, second part: the b-column forms of DIA and ELL and both BSR
+    kernels (one column and b columns) against their plain versions."""
+    import torch
+
+    from arnoldi_tpu_torch.linop import (BandedOperator, BsrOperator,
+                                         EllOperator, cast_operator)
+    from arnoldi_tpu_torch.ops.kernels import spmv_banded, spmv_bsr, spmv_ell
+
+    dev = torch.device("cuda")
+
+    def case(name, label, dtype, kernel, plain, timed):
+        r = rec[name]
+        r.check(label, dtype, kernel(), plain())
+        if timed and dtype == torch.float64:
+            r.ms = cuda_ms(kernel)
+            r.plain_ms = cuda_ms(plain)
+
+    # The tolerances: as above, each kernel sums the same products as its
+    # plain version in another order (einsum or gather-then-sum there).
+    dia64 = BandedOperator.from_scipy(mats["laplace"], device=dev)
+    for dtype in (torch.float64, torch.float32):
+        op = cast_operator(dia64, dtype)
+        X = torch.randn(B_COLS, op.shape[0], generator=gen, device=dev, dtype=dtype)
+        case("spmv_dia_cols", f"DIA laplace_2d(724) b={B_COLS}", dtype,
+             lambda: spmv_banded.banded_matmat(op.bands, X, op.offsets),
+             lambda: spmv_banded.banded_matvec_plain(op.bands, X, op.offsets),
+             timed=True)
+        if not torch.equal(spmv_banded.banded_matmat(op.bands, X, op.offsets)[3],
+                           spmv_banded.banded_matvec(op.bands, X[3], op.offsets)):
+            fail("spmv_dia_cols: a column differs from the single-column kernel")
+    del dia64, op, X
+
+    ell64 = EllOperator.from_scipy(mats["scattered"], device=dev)
+    for dtype in (torch.float64, torch.float32):
+        op = cast_operator(ell64, dtype)
+        X = torch.randn(B_COLS, op.shape[1], generator=gen, device=dev, dtype=dtype)
+        case("spmv_ell_cols", f"ELL scattered 2^20 b={B_COLS}", dtype,
+             lambda: spmv_ell.ell_matmat(op.data, op.cols, X),
+             lambda: spmv_ell.ell_matvec_plain(op.data, op.cols, X),
+             timed=True)
+        if not torch.equal(spmv_ell.ell_matmat(op.data, op.cols, X)[5],
+                           spmv_ell.ell_matvec(op.data, op.cols, X[5])):
+            fail("spmv_ell_cols: a column differs from the single-column kernel")
+    del ell64, op, X
+
+    for label, key, timed in (("scattered 2^20", "scattered", ("spmv_bsr", "spmv_bsr_cols")),
+                              ("bandwidth-1024", "window", ("spmv_bsr_window",
+                                                            "spmv_bsr_window_cols")),
+                              ("mark(1000) n=500500", "mark", ())):
+        bsr64 = BsrOperator.from_scipy(mats[key], device=dev)
+        print(f"  BSR-8 {label}: blocks {tuple(bsr64.blocks.shape)}, window "
+              f"{bsr64.window.width} block-columns "
+              f"({bsr64.window.width * 64} B a float64 column), uses the "
+              f"{'window' if bsr64.uses_window else 'gather'} kernel")
+        for dtype in (torch.float64, torch.float32):
+            op = cast_operator(bsr64, dtype)
+            x = torch.randn(op.n_cols, generator=gen, device=dev, dtype=dtype)
+            X = torch.randn(B_COLS, op.n_cols, generator=gen, device=dev, dtype=dtype)
+            blk, ids, win, nr = op.blocks, op.block_cols, op.window, op.n_rows
+            case("spmv_bsr", f"BSR gather {label}", dtype,
+                 lambda: spmv_bsr.bsr_matvec(blk, ids, x, nr),
+                 lambda: spmv_bsr.bsr_matvec_plain(blk, ids, x, nr),
+                 timed="spmv_bsr" in timed)
+            case("spmv_bsr_cols", f"BSR gather {label} b={B_COLS}", dtype,
+                 lambda: spmv_bsr.bsr_matmat(blk, ids, X, nr),
+                 lambda: spmv_bsr.bsr_matvec_plain(blk, ids, X, nr),
+                 timed="spmv_bsr_cols" in timed)
+            if label == "scattered 2^20":
+                continue   # its window is wider than shared memory
+            case("spmv_bsr_window", f"BSR window {label}", dtype,
+                 lambda: spmv_bsr.bsr_window_matvec(blk, win, x, nr),
+                 lambda: spmv_bsr.bsr_window_matvec_plain(blk, win, x, nr),
+                 timed="spmv_bsr_window" in timed)
+            case("spmv_bsr_window_cols", f"BSR window {label} b={B_COLS}", dtype,
+                 lambda: spmv_bsr.bsr_window_matmat(blk, win, X, nr),
+                 lambda: spmv_bsr.bsr_window_matvec_plain(blk, win, X, nr),
+                 timed="spmv_bsr_window_cols" in timed)
+            # The two kernels sum the same products in the same order.
+            if not torch.equal(spmv_bsr.bsr_window_matmat(blk, win, X, nr),
+                               spmv_bsr.bsr_matmat(blk, ids, X, nr)):
+                fail(f"BSR {label}: window and gather kernels differ")
+            if timed and dtype == torch.float64:
+                print(f"  BSR {label}, same matrix: gather "
+                      f"{cuda_ms(lambda: spmv_bsr.bsr_matvec(blk, ids, x, nr)):.4f} ms, "
+                      f"window {rec['spmv_bsr_window'].ms:.4f} ms; b={B_COLS}: gather "
+                      f"{cuda_ms(lambda: spmv_bsr.bsr_matmat(blk, ids, X, nr)):.4f} ms, "
+                      f"window {rec['spmv_bsr_window_cols'].ms:.4f} ms")
+        del bsr64, op, x, X, blk, ids, win
+    sync()
+    one = {"spmv_dia_cols": "spmv_dia", "spmv_ell_cols": "spmv_ell",
+           "spmv_bsr_cols": "spmv_bsr", "spmv_bsr_window_cols": "spmv_bsr_window"}
+    for cols, single in one.items():
+        print(f"  {cols}: b={B_COLS} in one call {rec[cols].ms:.4f} ms; "
+              f"{B_COLS} single-column calls {B_COLS * rec[single].ms:.4f} ms")
+
+
+def solve(label, op, nev, which, max_dim, sync_counts, block_size=1, p=None,
+          max_restarts=1000):
+    """One partial_schur solve on the card; returns (Q, T, hist, wall)."""
     import torch
 
     from arnoldi_tpu_torch import partial_schur
@@ -196,7 +318,8 @@ def solve(label, op, nev, which, max_dim, sync_counts):
     t0 = time.perf_counter()
     Q, T, hist = partial_schur(op, nev, max_dim=max_dim, stopping_criterion=1e-8,
                                sort_function=which, dtype=torch.float64,
-                               ortho="cgs2", max_restarts=1000)
+                               ortho="cgs2", max_restarts=max_restarts,
+                               block_size=block_size, p=p)
     sync()
     wall = time.perf_counter() - t0
     mv = hist.total_matvecs
@@ -205,7 +328,61 @@ def solve(label, op, nev, which, max_dim, sync_counts):
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"  launches so far: {sync_counts()}")
     print(f"  phases: {json.dumps(hist.phases)}")
-    return Q, T, hist
+    return Q, T, hist, wall
+
+
+def check_laplace(label, A, Q, T, side):
+    """Hold a laplace_2d(side) solve against the analytic spectrum."""
+    import numpy as np
+
+    from arnoldi_tpu_torch._host import matrices
+
+    res, lam = schur_residual(A, Q, T)
+    exact = np.sort(matrices.laplace_2d_eigen(side))
+    idx = np.clip(np.searchsorted(exact, lam.real), 1, exact.size - 1)
+    eig_err = np.minimum(np.abs(exact[idx] - lam.real),
+                         np.abs(exact[idx - 1] - lam.real))
+    top_err = abs(np.abs(lam).max() - np.abs(exact).max())
+    print(f"  eigenvalues {np.sort(lam.real)}")
+    print(f"  Schur residual / max|lambda| {res.max():.3e} (limit 1e-7); "
+          f"eigenvalue error {eig_err.max():.3e} (limit 1e-9); "
+          f"max|lambda| error {top_err:.3e} (limit 1e-9)")
+    if not (res.max() <= 1e-7 and eig_err.max() <= 1e-9 and top_err <= 1e-9
+            and np.all(np.abs(lam.imag) <= 1e-9)):
+        fail(f"{label} disagrees with the analytic spectrum")
+
+
+def arpack(label, A):
+    """ARPACK's five largest-real eigenvalues of A on the host."""
+    from scipy.sparse.linalg import eigs
+
+    t0 = time.perf_counter()
+    ref = eigs(A, 5, which="LR", tol=1e-8, ncv=40, return_eigenvectors=False)
+    print(f"  ARPACK on {label} (host, ncv=40) {time.perf_counter() - t0:.2f} s")
+    return ref
+
+
+def check_arpack(label, A, Q, T, ref):
+    """Hold a solve against ARPACK's values (Hungarian matching)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    res, lam = schur_residual(A, Q, T)
+    cost = np.abs(lam[:, None] - ref[None, :])
+    ri, ci = linear_sum_assignment(cost)
+    match_err = float(cost[ri, ci].max())
+    print(f"  eigenvalues {np.sort_complex(lam)}")
+    print(f"  ARPACK: {np.sort_complex(ref)}")
+    print(f"  Schur residual / max|lambda| {res.max():.3e} (limit 1e-7); "
+          f"matched eigenvalue error {match_err:.3e} (limit 1e-9)")
+    if not (res.max() <= 1e-7 and match_err <= 1e-9):
+        fail(f"{label} disagrees with ARPACK")
+
+
+def check_launched(label, before, after, names):
+    for name in names:
+        if after[name] == before[name]:
+            fail(f"{label} did not launch {name}")
 
 
 def rectangular(n_rows, n_cols, *, max_degree, seed):
@@ -242,8 +419,6 @@ def main():
     torch.set_float32_matmul_precision("highest")
     os.environ.setdefault("ARNOLDI_PHASES", "1")
 
-    import numpy as np
-
     from arnoldi_tpu_torch import as_operator
     from arnoldi_tpu_torch._host import matrices, native_dense_tier
     from arnoldi_tpu_torch.ops import kernels
@@ -273,6 +448,8 @@ def main():
                                                bandwidth=2**14, block=8),
         "mark": matrices.mark(1000),
         "rect": rectangular(200_000, 300_000, max_degree=60, seed=0),
+        "window": matrices.random_scattered(2**20, 24, seed=2,
+                                            bandwidth=1024, block=8),
     }
     print(f"  host matrices built in {time.perf_counter() - t0:.2f} s")
 
@@ -293,25 +470,12 @@ def main():
     print(f"  operator {type(op).__name__} offsets {op.offsets} built in "
           f"{time.perf_counter() - t0:.3f} s")
     kernels.reset_launch_counts()
-    Q, T, _ = solve("solve A", op, 5, "LM", 80, counts)
-    after_a = counts()
-    res, lam = schur_residual(A, Q, T)
-    exact = np.sort(matrices.laplace_2d_eigen(724))
-    idx = np.clip(np.searchsorted(exact, lam.real), 1, exact.size - 1)
-    eig_err = np.minimum(np.abs(exact[idx] - lam.real),
-                         np.abs(exact[idx - 1] - lam.real))
-    top_err = abs(np.abs(lam).max() - np.abs(exact).max())
-    print(f"  eigenvalues {np.sort(lam.real)}")
-    print(f"  Schur residual / max|lambda| {res.max():.3e} (limit 1e-7); "
-          f"eigenvalue error {eig_err.max():.3e} (limit 1e-9); "
-          f"max|lambda| error {top_err:.3e} (limit 1e-9)")
-    if not (res.max() <= 1e-7 and eig_err.max() <= 1e-9 and top_err <= 1e-9
-            and np.all(np.abs(lam.imag) <= 1e-9)):
-        fail("solve A disagrees with the analytic spectrum")
-    for name in ("spmv_dia", "masked_project", "project_update_norm"):
-        if after_a[name] == 0:
-            fail(f"solve A did not launch {name}")
-    del Q, op
+    before = counts()
+    Q, T, hist_a, wall_a = solve("solve A", op, 5, "LM", 80, counts)
+    check_launched("solve A", before, counts(),
+                   ("spmv_dia", "masked_project", "project_update_norm"))
+    check_laplace("solve A", A, Q, T, 724)
+    del Q
 
     print("phase 3: solve B, random_scattered(2^20), LR, k=5, m=40, float64, tol 1e-8")
     A = mats["scattered"]
@@ -320,32 +484,108 @@ def main():
     sync()
     print(f"  operator {type(op).__name__} L={op.data.shape[1]} nnz={op.nnz} "
           f"built in {time.perf_counter() - t0:.3f} s")
-    before_b = counts()
-    Q, T, _ = solve("solve B", op, 5, "LR", 40, counts)
+    before = counts()
+    Q, T, hist_b, wall_b = solve("solve B", op, 5, "LR", 40, counts)
+    check_launched("solve B", before, counts(), ("spmv_ell",))
+    ref_b = arpack("the scattered 2^20 matrix", A)
+    check_arpack("solve B", A, Q, T, ref_b)
+    del Q, op
+
+    def bsr(A):
+        t0 = time.perf_counter()
+        op = as_operator(A, dtype=torch.float64, format=("bsr", (8, 8)),
+                         device="cuda")
+        sync()
+        print(f"  operator BsrOperator blocks {tuple(op.blocks.shape)}, window "
+              f"{op.window.width} block-columns -> "
+              f"{'window' if op.uses_window else 'gather'} kernel, built in "
+              f"{time.perf_counter() - t0:.3f} s")
+        return op
+
+    print("phase 4: solve C, the scattered 2^20 matrix as BSR-8, LR, k=5, m=40")
+    op = bsr(A)
+    if op.uses_window:
+        fail("solve C: the scattered matrix's window should exceed the budget")
+    before = counts()
+    Q, T, hist_c, wall_c = solve("solve C", op, 5, "LR", 40, counts)
+    check_launched("solve C", before, counts(), ("spmv_bsr",))
+    check_arpack("solve C", A, Q, T, ref_b)
+    print(f"  matvecs: solve C (BSR-8) {hist_c.total_matvecs}, solve B (ELL) "
+          f"{hist_b.total_matvecs}; wall {wall_c:.4f} s vs {wall_b:.4f} s")
+    del Q, op
+
+    print(f"phase 5: solve D, random_scattered(2^20, bandwidth=1024) as BSR-8, "
+          f"block_size={B_COLS}, LR, k=5, m=40")
+    A_win = mats["window"]
+    op = bsr(A_win)
+    if not op.uses_window:
+        fail("solve D: the bandwidth-1024 matrix's window should fit")
+    before = counts()
+    Q, T, hist_d, wall_d = solve("solve D", op, 5, "LR", 40, counts,
+                                 block_size=B_COLS)
+    check_launched("solve D", before, counts(), ("spmv_bsr_window_cols",))
+    ref_d = arpack("the bandwidth-1024 matrix", A_win)
+    check_arpack("solve D", A_win, Q, T, ref_d)
+    del Q, op
+
+    print(f"phase 6: solve E, laplace_2d(724), block_size={B_COLS}, LM, k=5, "
+          f"m=80, p=40")
+    A = mats["laplace"]
+    op = as_operator(A, dtype=torch.float64, device="cuda")
+    before = counts()
+    # p = m/2 (keep half): the block driver's default p = 16 converges far
+    # more slowly on this clustered spectrum (42,128 against 26,720 matvecs
+    # at laplace_2d(400) on the CPU), and its restart count grows with n.
+    Q, T, hist_e, wall_e = solve("solve E", op, 5, "LM", 80, counts,
+                                 block_size=B_COLS, p=40, max_restarts=5000)
+    check_launched("solve E", before, counts(), ("spmv_dia_cols",))
+    check_laplace("solve E", A, Q, T, 724)
+    print(f"  ms/matvec: solve E (block-8) {1e3 * wall_e / hist_e.total_matvecs:.4f}, "
+          f"solve A (scalar) {1e3 * wall_a / hist_a.total_matvecs:.4f}")
+    del Q, op
+
+    A = mats["scattered"]
+    print(f"phase 7: solve F, the scattered 2^20 matrix (ELL), "
+          f"block_size={B_COLS}, LR, k=5, m=40")
+    op = as_operator(A, dtype=torch.float64, device="cuda")
+    before = counts()
+    Q, T, hist_f, wall_f = solve("solve F", op, 5, "LR", 40, counts,
+                                 block_size=B_COLS)
+    check_launched("solve F", before, counts(), ("spmv_ell_cols",))
+    check_arpack("solve F", A, Q, T, ref_b)
+    del Q, op
+
+    print(f"phase 8: solve G, the scattered 2^20 matrix as BSR-8, "
+          f"block_size={B_COLS}, LR, k=5, m=40")
+    op = bsr(A)
+    before = counts()
+    Q, T, hist_g, wall_g = solve("solve G", op, 5, "LR", 40, counts,
+                                 block_size=B_COLS)
+    check_launched("solve G", before, counts(), ("spmv_bsr_cols",))
+    check_arpack("solve G", A, Q, T, ref_b)
+    del Q, op
+
+    print("phase 9: solve H, the bandwidth-1024 matrix as BSR-8, scalar, LR, "
+          "k=5, m=40")
+    op = bsr(A_win)
+    before = counts()
+    Q, T, hist_h, wall_h = solve("solve H", op, 5, "LR", 40, counts)
+    check_launched("solve H", before, counts(), ("spmv_bsr_window",))
+    check_arpack("solve H", A_win, Q, T, ref_d)
+    del Q, op
+
     final = counts()
-    if final["spmv_ell"] == before_b["spmv_ell"]:
-        fail("solve B did not launch spmv_ell")
-    res, lam = schur_residual(A, Q, T)
-    from scipy.optimize import linear_sum_assignment
-    from scipy.sparse.linalg import eigs
-
-    t0 = time.perf_counter()
-    ref = eigs(A, 5, which="LR", tol=1e-8, ncv=40, return_eigenvectors=False)
-    arpack_s = time.perf_counter() - t0
-    cost = np.abs(lam[:, None] - ref[None, :])
-    ri, ci = linear_sum_assignment(cost)
-    match_err = float(cost[ri, ci].max())
-    print(f"  eigenvalues {np.sort_complex(lam)}")
-    print(f"  ARPACK (host, ncv=40) {arpack_s:.2f} s: {np.sort_complex(ref)}")
-    print(f"  Schur residual / max|lambda| {res.max():.3e} (limit 1e-7); "
-          f"matched eigenvalue error {match_err:.3e} (limit 1e-9)")
-    if not (res.max() <= 1e-7 and match_err <= 1e-9):
-        fail("solve B disagrees with ARPACK")
-
     missing = [k for k, v in final.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    print(f"launches on the main path (phases 2-3): {final}")
+    print(f"launches on the main path (phases 2-9): {final}")
+    summary = {label: {"matvecs": h.total_matvecs, "restarts": len(h.residual_trace),
+                       "wall_s": w, "ms_per_matvec": 1e3 * w / h.total_matvecs}
+               for label, h, w in (("A", hist_a, wall_a), ("B", hist_b, wall_b),
+                                   ("C", hist_c, wall_c), ("D", hist_d, wall_d),
+                                   ("E", hist_e, wall_e), ("F", hist_f, wall_f),
+                                   ("G", hist_g, wall_g), ("H", hist_h, wall_h))}
+    print(f"solves: {json.dumps(summary)}")
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

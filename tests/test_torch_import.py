@@ -1,5 +1,6 @@
-"""``arnoldi_tpu_torch`` imports and solves where JAX cannot be imported,
-and a CPU solve never builds or loads the CUDA kernel library."""
+"""``arnoldi_tpu_torch`` imports and solves (scalar, and block over BSR-8)
+where JAX cannot be imported, and a CPU solve never builds or loads the
+CUDA kernel library."""
 
 import json
 import os
@@ -23,6 +24,9 @@ from arnoldi_tpu_torch.ops.kernels import _build
 A = matrices.mark(12)
 Q, T, hist = partial_schur(A, 3, sort_function="LR", device="cpu")
 res = np.linalg.norm(A @ Q.numpy() - Q.numpy() @ T.numpy(), axis=0).max()
+op = arnoldi_tpu_torch.as_operator(A, format="bsr", device="cpu")
+Q, T, hist = partial_schur(op, 3, sort_function="LR", block_size=2)
+res = max(res, np.linalg.norm(A @ Q.numpy() - Q.numpy() @ T.numpy(), axis=0).max())
 print(json.dumps({
     "residual": float(res),
     "jax_modules": sorted(m for m, mod in sys.modules.items()

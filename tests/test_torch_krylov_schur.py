@@ -187,7 +187,6 @@ def test_host_input_needs_a_device():
 
 @pytest.mark.parametrize("kwargs", [
     dict(dtype=np.complex128),
-    dict(block_size=2),
     dict(mesh=object()),
     dict(checkpoint_path="run.npz"),
     dict(resume=True),

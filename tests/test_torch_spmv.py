@@ -143,8 +143,10 @@ def test_host_input_needs_a_device():
 
 
 def test_outside_the_slice_raises():
+    from scipy.sparse.linalg import aslinearoperator
+
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        as_operator(mark(5), format="bsr", device="cpu")
+        as_operator(aslinearoperator(mark(5)), device="cpu")
     op = as_operator(mark(20), device="cpu")
     with pytest.raises(ValueError, match="re-formatted"):
         as_operator(op, format="banded")
