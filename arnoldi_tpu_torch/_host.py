@@ -2,12 +2,13 @@
 
 ``arnoldi_tpu/__init__.py`` (and ``arnoldi_tpu/utils/__init__.py``) import
 JAX, so ``import arnoldi_tpu.matrices`` fails where JAX is not installed.
-The modules below import only NumPy/SciPy (and the native dense tier's
-ctypes binding), so they are reused as they are: each is loaded from its
-file under a private package alias whose parent packages are empty stubs
-with ``__path__`` pointing at the JAX package's directories.  Relative
-imports between them then resolve inside the alias, and no ``__init__.py``
-of the JAX package runs.
+The modules below import only NumPy/SciPy (and the ctypes bindings of the
+native dense tier and the host-tier engine, which build their libraries with
+``g++`` on first use, not on import), so they are reused as they are: each
+is loaded from its file under a private package alias whose parent packages
+are empty stubs with ``__path__`` pointing at the JAX package's directories.
+Relative imports between them then resolve inside the alias, and no
+``__init__.py`` of the JAX package runs.
 """
 
 import importlib
@@ -36,8 +37,9 @@ sorting = importlib.import_module(f"{_ALIAS}.utils.sorting")
 history = importlib.import_module(f"{_ALIAS}.utils.history")
 dense_tier = importlib.import_module(f"{_ALIAS}.ops.dense_tier")
 native_dense_tier = importlib.import_module(f"{_ALIAS}.native.dense_tier")
+host_engine = importlib.import_module(f"{_ALIAS}.native.host_engine")
 
 History = history.History
 
-__all__ = ["History", "dense_tier", "history", "matrices",
+__all__ = ["History", "dense_tier", "history", "host_engine", "matrices",
            "native_dense_tier", "sorting"]

@@ -9,12 +9,12 @@ rows of the transposed basis ``Vt: (m+1, n)`` and returns
 * ``beta`` -- ``||w||`` as a 0-d tensor;
 * ``breakdown`` -- ``beta < tol`` as a 0-d bool tensor.
 
-All of them are built from the two fused passes of
+The classical ones are built from the two fused passes of
 ``ops/kernels/ortho_fused.py``, which launch the CUDA kernels on CUDA
-tensors and run their plain PyTorch versions on CPU tensors.  The DGKS
-test of :func:`cgs_dgks` is a host ``if`` on a 0-d tensor, so it waits for
-the device once per call (the JAX version keeps it on the device with
-``lax.cond``).
+tensors and run their plain PyTorch versions on CPU tensors;
+:func:`mgs_dgks` is plain PyTorch. The DGKS test of :func:`cgs_dgks` is a
+host ``if`` on a 0-d tensor, so it waits for the device once per call (the
+JAX version keeps it on the device with ``lax.cond``).
 
 :func:`block_cgs2`, the block driver's kernel, orthogonalizes b rows at
 once with ``torch.matmul`` projections and CholQR2, and returns
@@ -49,6 +49,33 @@ def cgs_dgks(Vt, w, n_active, *, tol=1e-8, eta=M_SQRT1_2):
             c2, w1, beta1 = _project(Vt, w1, n_active)
             c1 = c1 + c2
     return c1, w1, beta1, beta1 < tol
+
+
+def mgs_dgks(Vt, w, n_active, *, tol=1e-8, eta=M_SQRT1_2):
+    """Modified Gram-Schmidt with one DGKS-controlled second pass, taken
+    when ``beta1 < eta * ||w||``; ``eta <= 0`` never takes it.
+
+    Sequential by construction: a Python loop over the ``n_active`` rows,
+    one dot and one axpy each.  Kept for parity and cross-validation with
+    the classical kernels, so it has no kernel of its own.
+    """
+    n_active = int(n_active)
+    h = torch.zeros(Vt.shape[0], dtype=Vt.dtype, device=Vt.device)
+
+    def one_pass(w):
+        for i in range(n_active):
+            c = torch.vdot(Vt[i], w)
+            w = w - c * Vt[i]
+            h[i] += c
+        return w
+
+    beta_before = torch.linalg.vector_norm(w)
+    w = one_pass(w)
+    beta = torch.linalg.vector_norm(w)
+    if eta > 0 and bool(beta < eta * beta_before):
+        w = one_pass(w)
+        beta = torch.linalg.vector_norm(w)
+    return h, w, beta, beta < tol
 
 
 #: Twice-is-enough CGS: both passes always run.
@@ -122,13 +149,14 @@ def block_cgs2(Vt, W, n_active, *, tol=1e-8):
 
 #: Registry used by the solver drivers (``ortho=``).  ``"cgs2_pallas"``
 #: names the same function as ``"cgs2"``, so one ``ortho=`` value drives
-#: both packages in the parity tests.  ``mgs_dgks`` and ``mgs`` are not
-#: ported yet (ROADMAP.md, Queue 1 item 3).  :func:`block_cgs2` has another
+#: both packages in the parity tests.  :func:`block_cgs2` has another
 #: contract and is called by the block driver directly.
 ORTHO_KERNELS = {
     "cgs_dgks": cgs_dgks,
+    "mgs_dgks": mgs_dgks,
     "cgs2": cgs2,
     "cgs": partial(cgs_dgks, eta=0.0),
+    "mgs": partial(mgs_dgks, eta=0.0),
     "cgs2_pallas": cgs2,
 }
 
@@ -136,10 +164,6 @@ ORTHO_KERNELS = {
 def resolve_ortho(name_or_fn):
     if callable(name_or_fn):
         return name_or_fn
-    if name_or_fn in ("mgs_dgks", "mgs"):
-        raise NotImplementedError(
-            f"ortho={name_or_fn!r} is not ported yet (ROADMAP.md, Queue 1 "
-            "item 3)")
     try:
         return ORTHO_KERNELS[name_or_fn]
     except KeyError:

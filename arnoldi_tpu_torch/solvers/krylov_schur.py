@@ -1,9 +1,10 @@
-"""Krylov-Schur restarted eigensolver, device path, scalar and block.
+"""Krylov-Schur restarted eigensolver, scalar and block, on a device or on
+the host tier.
 
 Counterpart of ``partial_schur`` in ``arnoldi_tpu/solvers/krylov_schur.py``
-(its device path, lines 541-897): repeat [Arnoldi expand to m | ordered
-Schur of the projected H on the host | truncate the basis to p rows carrying
-the residual vector | test ``|h_{m+1,m} q_{m,i}| / |t_ii| < tol``].  With
+(lines 541-897): repeat [Arnoldi expand to m | ordered Schur of the
+projected H on the host | truncate the basis to p rows carrying the
+residual vector | test ``|h_{m+1,m} q_{m,i}| / |t_ii| < tol``].  With
 ``block_size = b > 1`` the expansion takes b vectors a step (the operator's
 b-column kernels and ``block_cgs2``), the residual is a block of b rows,
 and the residual estimates are norms of the b coupling rows.
@@ -15,9 +16,13 @@ small H crossing the boundary once per restart.  A real operator runs in the
 real work dtype with the real Schur form (2x2 blocks for conjugate pairs),
 as the TPU path and the host tier do.
 
+Small SciPy/NumPy float64 problems (n <= 32768, or any n when the target
+device is the CPU) run the whole solve on the host tier instead
+(``workspace.HostWorkspace``, :func:`~.workspace.uses_host_tier`), as the
+JAX package does, and return their results on the requested device.
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): complex dtypes, ``mesh``, checkpointing, double-word refinement,
-and the host tier for small problems.
+item): complex dtypes, ``mesh``, checkpointing and double-word refinement.
 """
 
 import numpy as np
@@ -26,11 +31,11 @@ import torch
 from .._host import History, dense_tier, sorting
 from ..device import check_matmul_precision, numpy_dtype, torch_dtype
 from ..linop import as_operator, cast_operator
-from ..utils.profiling import phase_clock
 from ..ops.ortho import block_cgs2
+from ..utils.profiling import phase_clock
 from ..utils.random import rand_normalized_vector
-from .decomposition import (arnoldi_expand, block_arnoldi_expand,
-                            default_invariant_tol)
+from .decomposition import default_invariant_tol
+from .workspace import DeviceWorkspace, HostWorkspace, uses_host_tier
 
 
 def _not_ported(what, item):
@@ -59,16 +64,63 @@ def _schur_blocks(T):
     return starts, sizes, in_block
 
 
-def _truncate(V, V_alt, Qp, m, p, carry=1):
-    """``V_alt[:p] = Qp^T V[:m]`` with the ``carry`` residual rows
-    ``V[m:m+carry]`` (1, or b for the block driver) carried to
-    ``V_alt[p:p+carry]``; returns the swapped pair ``(V_alt, V)``.  Rows
-    past ``p + carry`` of the new basis are stale: the expansions read the
-    rows before their step only.  Writing into the second workspace avoids
-    an (m+b, n) allocation per restart."""
-    torch.matmul(Qp.T, V[:m], out=V_alt[:p])
-    V_alt[p:p + carry] = V[m:m + carry]
-    return V_alt, V
+def _operator_and_dtype(A, host_tier, device):
+    """``(op, n, dtype)``: the operator on its device, or for the host tier
+    no operator (the workspace holds ``A`` itself) and ``A``'s own dtype."""
+    if host_tier:
+        if A.shape[0] != A.shape[1]:
+            raise ValueError(f"need a square operator, got {A.shape}")
+        return None, A.shape[0], torch_dtype(A.dtype)
+    op = as_operator(A, device=device)
+    if op.shape[1] != op.shape[0]:
+        raise ValueError(f"need a square operator, got {op.shape}")
+    return op, op.shape[0], op.dtype
+
+
+def _check_refine(refine, wdtype, tol):
+    if refine == "dw" or (refine == "auto" and wdtype == torch.float32
+                          and tol < 1e-6):
+        raise _not_ported("refine (a float32 solve below tol 1e-6 continued "
+                          "in higher precision)", "Queue 1 item 8")
+    if refine not in ("auto", None, "none", False):
+        raise ValueError(f"refine={refine!r}: expected 'auto', 'dw' or None")
+
+
+def _start_rows(n, b, wdtype, dev, *, v0, generator, start_block, tol):
+    """The (b, n) orthonormal start block on ``dev``: ``v0`` (or a unit
+    Gaussian vector from ``generator``) and, for b > 1, b - 1 further
+    Gaussian rows from ``generator`` (or ``start_block`` in place of both),
+    orthonormalized by ``block_cgs2``, which keeps row 0 parallel to v0."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    if start_block is not None and b == 1:
+        raise ValueError("_start_block is for the block driver (block_size > 1)")
+    if v0 is None:
+        v0 = rand_normalized_vector(n, wdtype, device=dev, generator=generator)
+    else:
+        if v0.is_complex() if torch.is_tensor(v0) else np.iscomplexobj(v0):
+            raise _not_ported("a complex start vector", "Queue 1 item 5")
+        v0 = torch.as_tensor(v0).to(device=dev, dtype=wdtype)
+        v0 = v0 / torch.linalg.vector_norm(v0)
+    if b == 1:
+        return v0[None, :]
+    if start_block is None:
+        extra = torch.randn((b - 1, n), generator=generator, dtype=wdtype).to(dev)
+        W0 = torch.cat([v0[None, :], extra])
+    else:
+        W0 = torch.as_tensor(start_block).to(device=dev, dtype=wdtype)
+        if W0.shape != (b, n):
+            raise ValueError(f"_start_block must be ({b}, {n}), got "
+                             f"{tuple(W0.shape)}")
+    # No active rows: block_cgs2 reads none of its first argument.
+    return block_cgs2(W0, W0, 0, tol=tol)[1]
+
+
+def _workspace(A, op, device, max_dim, b, ortho, clock):
+    """The host tier's workspace for ``op=None``, else the device one."""
+    if op is None:
+        return HostWorkspace(A, max_dim, ortho, clock, device)
+    return DeviceWorkspace(op, max_dim, b, ortho, clock)
 
 
 def partial_schur(
@@ -109,13 +161,14 @@ def partial_schur(
     sort_function : "which" selector, a callable or an ARPACK string
         ("LM", "LR", ...); default largest magnitude.
     p : truncation size.  None runs the adaptive retention policy of the
-        JAX device path (locked prefix plus half the unconverged window,
-        rounded up to a quantum of ``max(8, ceil((max_dim - nev) / 3))``);
+        JAX package (locked prefix plus half the unconverged window,
+        rounded up to a quantum of ``max(8, ceil((max_dim - nev) / 3))``
+        on a device and of 1 on the host tier);
         an integer pins it.  The block driver has no adaptive policy: its
         default is ``nev + max(5, b)`` rounded up to a multiple of b (at
         most ``max_dim - b``), and p must be a multiple of b.
-    ortho : "cgs_dgks" (default), "cgs2", "cgs" or "cgs2_pallas" (the same
-        function as "cgs2").
+    ortho : "cgs_dgks" (default), "cgs2", "cgs", "mgs_dgks", "mgs" or
+        "cgs2_pallas" (the same function as "cgs2").
     dtype : work dtype, float32 or float64; default the operator's.  The
         operator's values are cast to it (the JAX version casts each
         matvec's result instead).
@@ -124,7 +177,12 @@ def partial_schur(
     v0 : explicit start vector overriding ``generator`` (the block driver
         still draws its b - 1 further rows from it).
     device : where to run; None means the operator's own device (NumPy and
-        SciPy input then raise, having none).
+        SciPy input then raise, having none).  SciPy/NumPy float64 input
+        with n <= ``ARNOLDI_HOST_TIER_N`` (default 32768), or of any size
+        with ``device="cpu"``, runs on the host tier whatever ``device``
+        says (scalar driver, ``ortho`` one of "cgs_dgks", "cgs2",
+        "mgs_dgks"; the C++ engine for sparse input, built with ``g++`` on
+        first use), and its results are copied to ``device`` at the end.
     lock : "soft" (default) or "hard", as in the JAX package; the block
         driver always locks softly.
     refine : "auto" (default) or None.  A float32 solve to a tolerance
@@ -152,8 +210,6 @@ def partial_schur(
     b = int(block_size)
     if b < 1:
         raise ValueError(f"block_size must be positive, got {block_size}")
-    if _start_block is not None and b == 1:
-        raise ValueError("_start_block is for the block driver (block_size > 1)")
     if mesh is not None:
         raise _not_ported("mesh= (sharded solves)", "Queue 1 item 13")
     if checkpoint_path is not None or resume:
@@ -161,11 +217,10 @@ def partial_schur(
     if lock not in ("soft", "hard"):
         raise ValueError(f"lock={lock!r}: expected 'soft' or 'hard'")
 
-    op = as_operator(A, device=device)
-    n = op.shape[0]
-    if op.shape[1] != n:
-        raise ValueError(f"partial_schur needs a square operator, got {op.shape}")
-    tol = (default_invariant_tol(op.dtype) if stopping_criterion is None
+    host_tier = uses_host_tier(A, device=device, dtype=dtype, block_size=b,
+                               ortho=ortho)
+    op, n, op_dtype = _operator_and_dtype(A, host_tier, device)
+    tol = (default_invariant_tol(op_dtype) if stopping_criterion is None
            else float(stopping_criterion))
     if sort_function is None:
         sort_function = sorting.arg_largest_magnitude
@@ -186,58 +241,24 @@ def partial_schur(
     if not 0 < nev < max_dim <= n:
         raise ValueError(f"need 0 < nev < max_dim <= n, got {nev}, {max_dim}, {n}")
 
-    wdtype = _work_dtype(op.dtype, dtype)
-    if refine == "dw" or (refine == "auto" and wdtype == torch.float32
-                          and tol < 1e-6):
-        raise _not_ported("refine (a float32 solve below tol 1e-6 continued "
-                          "in higher precision)", "Queue 1 item 8")
-    if refine not in ("auto", None, "none", False):
-        raise ValueError(f"refine={refine!r}: expected 'auto', 'dw' or None")
-    check_matmul_precision(wdtype, op.device)
-    op = cast_operator(op, wdtype)
-    dev = op.device
+    wdtype = _work_dtype(op_dtype, dtype)
+    _check_refine(refine, wdtype, tol)
+    if host_tier:
+        dev = torch.device("cpu")     # where the start vector is made
+    else:
+        check_matmul_precision(wdtype, op.device)
+        op = cast_operator(op, wdtype)
+        dev = op.device
     np_wdtype = numpy_dtype(wdtype)
 
     history = History.from_k(nev)
     clock = phase_clock()
 
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
     with clock("workspace_setup"):
-        V = torch.zeros((max_dim + b, n), dtype=wdtype, device=dev)
-        V_alt = torch.empty_like(V)
-        H = torch.zeros((max_dim + b, max_dim), dtype=wdtype, device=dev)
-        if v0 is None:
-            v0 = rand_normalized_vector(n, wdtype, device=dev,
-                                        generator=generator)
-        else:
-            if (v0.is_complex() if torch.is_tensor(v0)
-                    else np.iscomplexobj(v0)):
-                raise _not_ported("a complex start vector", "Queue 1 item 5")
-            v0 = torch.as_tensor(v0).to(device=dev, dtype=wdtype)
-            v0 = v0 / torch.linalg.vector_norm(v0)
-        V[0] = v0
-        if b > 1:
-            # The start block: v0 and b - 1 Gaussian rows, orthonormalized.
-            if _start_block is None:
-                extra = torch.randn((b - 1, n), generator=generator,
-                                    dtype=wdtype).to(dev)
-                W0 = torch.cat([v0[None, :], extra])
-            else:
-                W0 = torch.as_tensor(_start_block).to(device=dev, dtype=wdtype)
-                if W0.shape != (b, n):
-                    raise ValueError(f"_start_block must be ({b}, {n}), got "
-                                     f"{tuple(W0.shape)}")
-            V[:b] = block_cgs2(V, W0, 0, tol=tol)[1]
-
-    with clock("initial_expand"):
-        if b > 1:
-            V, H, jb = block_arnoldi_expand(op, V, H, tol, start_block=0,
-                                            n_blocks=max_dim // b, b=b)
-            m = jb * b
-        else:
-            V, H, m = arnoldi_expand(op, V, H, tol, start_dim=0,
-                                     max_dim=max_dim, ortho=ortho)
+        ws = _workspace(A, op, device, max_dim, b, ortho, clock)
+        ws.set_start(_start_rows(n, b, wdtype, dev, v0=v0, generator=generator,
+                                 start_block=_start_block, tol=tol))
+    m = ws.expand(0, tol)
     total_matvecs = m
 
     has_converged = False
@@ -258,8 +279,7 @@ def partial_schur(
                 f"Invariant subspace of dimension {m} < nev={nev} found; "
                 "start vector lives in a too-small invariant subspace")
 
-        with clock("h_pull"):
-            H_host = H.cpu().numpy().astype(np.float64)
+        H_host = ws.h_host()
         if H_trunc_hp is not None:
             H_host[: prev_pa + b, :prev_pa] = H_trunc_hp
         ka = k_lock
@@ -330,17 +350,13 @@ def partial_schur(
             if ka:
                 T_out[:ka, ka:] = H_host[:ka, ka:m] @ Qa[:, :cr]
             T_out[ka:, ka:] = T2a[:cr, :cr]
-            with clock("final_truncate"):
-                V, V_alt = _truncate(
-                    V, V_alt, torch.from_numpy(Qp_full.astype(np_wdtype)).to(dev),
-                    m, nev_ret, carry=b)
+            ws.truncate(Qp_full, m, nev_ret)
             if ka:
                 # Locked pairs froze in lock order; re-sort the converged
                 # output globally, as the no-locking path presents it.
                 T_out, Qs, _ = dense_tier.ordered_schur_real(
                     T_out, sort_function=sort_function)
-                Qs = torch.from_numpy(Qs.astype(np_wdtype)).to(dev)
-                V[:nev_ret] = Qs.T @ V[:nev_ret]
+                ws.rotate_head(Qs, nev_ret)
             break
 
         # Block driver: a saturated expansion without convergence (rank
@@ -364,12 +380,14 @@ def partial_schur(
 
         # Truncation size.  Adaptive: keep the locked prefix plus half the
         # unconverged window, at least ARPACK's nev + min(nconv, (m-nev)/2),
-        # rounded up to the device path's quantum q.  q decides which Schur
-        # vectors are kept, so it stays the JAX device path's value.
+        # rounded up to a quantum q.  q decides which Schur vectors are
+        # kept, so it stays the JAX package's: 1 on the host tier (which
+        # lands on ARPACK's restart counts), a third of the nev..max_dim
+        # span on a device (a few static shapes there).
         if adaptive:
             raw = max(k_new + max((m - k_new) // 2, 1),
                       nev + min(k_new, max((m - nev) // 2, 1)))
-            q = max(8, -(-(max_dim - nev) // 3))
+            q = 1 if ws.host else max(8, -(-(max_dim - nev) // 3))
             pa = min(-(-raw // q) * q, m - 1)
             pa = max(pa, min(k_new + 1, m - 1))     # window never empty
         else:
@@ -428,21 +446,7 @@ def partial_schur(
         if hard_lock:
             k_lock = k_new
 
-        with clock("truncate"):
-            V, V_alt = _truncate(
-                V, V_alt, torch.from_numpy(Qp_full.astype(np_wdtype)).to(dev),
-                m, pa, carry=b)
-            H = torch.from_numpy(H_new.astype(np_wdtype)).to(dev)
-        exp_tol = 0.0 if reseed else tol
-        with clock("expand"):
-            if b > 1:
-                V, H, jb = block_arnoldi_expand(op, V, H, exp_tol,
-                                                start_block=pa // b,
-                                                n_blocks=max_dim // b, b=b)
-                m_new = jb * b
-            else:
-                V, H, m_new = arnoldi_expand(op, V, H, exp_tol, start_dim=pa,
-                                             max_dim=max_dim, ortho=ortho)
+        m_new = ws.restart(Qp_full, H_new, m, pa, 0.0 if reseed else tol)
         total_matvecs += m_new - pa
         m = m_new
 
@@ -450,8 +454,8 @@ def partial_schur(
     if not has_converged:
         raise ValueError("Has not converged !")
     history.phases = clock.report()
-    schur_vecs = V[:nev_ret].clone().T   # back to the (n, nev) contract
-    schur_mat = torch.from_numpy(T_out.astype(np_wdtype)).to(dev)
+    schur_vecs = ws.rows(nev_ret)     # back to the (n, nev) contract
+    schur_mat = torch.from_numpy(T_out.astype(np_wdtype)).to(schur_vecs.device)
     return schur_vecs, schur_mat, history
 
 

@@ -31,16 +31,32 @@ nonzero before the last line is printed):
 8. solve G: the scattered 2^20 matrix as BSR-8, ``block_size=8`` (BSR
    gather kernel, b-column form), checked the same way;
 9. solve H: the bandwidth-1024 matrix as BSR-8, scalar (BSR window kernel),
-   checked against solve D's ARPACK values.
+   checked against solve D's ARPACK values;
+10. solve I: ``partial_eigh`` on ``laplace_2d(724)`` (DIA + fused CGS2),
+    LA, k = 5, m = 80, through the device restart loop, checked against the
+    analytic spectrum;
+11. solve J: ``partial_eigh`` on the symmetrized scattered 2^20 matrix S
+    (ELL b-column kernel + ``block_cgs2``), ``block_size=8``, LA, k = 5,
+    m = 40, device loop, checked against ``scipy.sparse.linalg.eigsh``;
+12. solve K: the same S, scalar, ``ortho="selective"`` (the host-
+    orchestrated loop; ELL kernel, and the fused passes in the selective
+    kernel's DGKS fallback), checked the same way;
+13. solve L, the host tier: the bench's correctness gate (``laplace_2d(40,
+    39)``, 4 LA pairs) and ``partial_schur(mark(100))`` LR against ARPACK,
+    both passed as SciPy matrices with ``device="cuda"``: they must launch
+    no kernel, run in the C++ host engine and return CUDA tensors.
 
-All solves run in float64 to tol 1e-8 and must give a Schur residual
-``||AQ - QT|| / max|lambda| <= 1e-7`` and eigenvalues within 1e-9 of the
-reference.  The kernels' launch counters are zeroed just before phase 2
-and read after phase 9; every kernel must have launched, and each solve
-must have launched the kernels of its operator.  The line before the last
-is a JSON object with each kernel's route, source, launches, error and
-times; the last line is ``{"ok": true, "device": {...}}``.  Needs no network
-and imports nothing of JAX.
+All solves run in float64 to tol 1e-8. ``partial_schur`` solves must give a
+Schur residual ``||AQ - QT|| / max|lambda| <= 1e-7`` and eigenvalues within
+1e-9 of the reference; ``partial_eigh`` solves a residual ``||Av - lambda
+v|| / max|lambda| <= 1e-7``, orthonormal vectors within 1e-10 and
+eigenvalues within 1e-9. A device solve that lands on the host tier fails
+the run. The kernels' launch counters are zeroed just before phase 2 and
+read after phase 13; every kernel must have launched, and each solve must
+have launched the kernels of its operator. The line before the last is a
+JSON object with each kernel's route, source, launches, error and times; the
+last line is ``{"ok": true, "device": {...}}``. Needs no network and imports
+nothing of JAX.
 """
 
 import json
@@ -322,13 +338,85 @@ def solve(label, op, nev, which, max_dim, sync_counts, block_size=1, p=None,
                                block_size=block_size, p=p)
     sync()
     wall = time.perf_counter() - t0
+    report_solve(label, hist, wall, sync_counts)
+    return Q, T, hist, wall
+
+
+def report_solve(label, hist, wall, sync_counts, host_tier=False):
+    """Print a solve's numbers; fail if it ran on the wrong tier."""
+    import torch
+
     mv = hist.total_matvecs
     print(f"  {label}: wall {wall:.4f} s, matvecs {mv}, restarts "
           f"{len(hist.residual_trace)}, {1e3 * wall / mv:.4f} ms/matvec, "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     print(f"  launches so far: {sync_counts()}")
     print(f"  phases: {json.dumps(hist.phases)}")
-    return Q, T, hist, wall
+    on_host = any(k.startswith(("engine.", "host.")) for k in hist.phases)
+    if on_host != host_tier:
+        fail(f"{label} ran on the {'host tier' if on_host else 'device'}")
+
+
+def eigh_solve(label, op, nev, max_dim, sync_counts, **kw):
+    """One partial_eigh solve on the card; returns (vals, V, hist, wall)."""
+    import torch
+
+    from arnoldi_tpu_torch import partial_eigh
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vals, V, hist = partial_eigh(op, nev, which="LA", max_dim=max_dim,
+                                 stopping_criterion=1e-8, dtype=torch.float64,
+                                 **kw)
+    sync()
+    wall = time.perf_counter() - t0
+    report_solve(label, hist, wall, sync_counts)
+    return vals, V, hist, wall
+
+
+def eigh_residual(label, A, vals, V):
+    """Residual ||Av - lambda v|| / max|lambda| and orthonormality of V."""
+    import numpy as np
+
+    Vh = V.double().cpu().numpy()
+    res = np.linalg.norm(A @ Vh - Vh * vals[None, :], axis=0) / np.abs(vals).max()
+    orth = np.abs(Vh.T @ Vh - np.eye(len(vals))).max()
+    print(f"  eigenvalues {vals}")
+    print(f"  residual / max|lambda| {res.max():.3e} (limit 1e-7); "
+          f"|V^T V - I| {orth:.3e} (limit 1e-10)")
+    if not (res.max() <= 1e-7 and orth <= 1e-10):
+        fail(f"{label}: residual or orthonormality out of bounds")
+
+
+def check_laplace_eigh(label, A, vals, V, side):
+    """Hold an LA laplace_2d(side) partial_eigh solve against the analytic
+    spectrum: each value within 1e-9 of its nearest exact eigenvalue (a
+    scalar Krylov space may miss one copy of a double eigenvalue), and the
+    largest one found."""
+    import numpy as np
+
+    from arnoldi_tpu_torch._host import matrices
+
+    eigh_residual(label, A, vals, V)
+    exact = np.sort(matrices.laplace_2d_eigen(side))
+    err = np.abs(exact[None, :] - vals[:, None]).min(axis=1).max()
+    top_err = abs(vals.max() - exact.max())
+    print(f"  eigenvalue error {err:.3e} (limit 1e-9); largest eigenvalue "
+          f"error {top_err:.3e} (limit 1e-9)")
+    if not (err <= 1e-9 and top_err <= 1e-9):
+        fail(f"{label} disagrees with the analytic spectrum")
+
+
+def check_eigsh(label, A, vals, V, ref):
+    """Hold a partial_eigh solve against eigsh's values."""
+    import numpy as np
+
+    eigh_residual(label, A, vals, V)
+    err = np.abs(np.sort(vals) - np.sort(ref)).max()
+    print(f"  eigsh: {np.sort(ref)}; matched eigenvalue error {err:.3e} "
+          "(limit 1e-9)")
+    if not err <= 1e-9:
+        fail(f"{label} disagrees with eigsh")
 
 
 def check_laplace(label, A, Q, T, side):
@@ -409,6 +497,124 @@ def schur_residual(A, Q, T):
     return res, lam
 
 
+def symmetric_scattered(n):
+    """S = (A + A^T) / 2 of the scattered matrix with reflected edges (the
+    default clipped edges make hub rows that ELL refuses once transposed)."""
+    from arnoldi_tpu_torch._host import matrices
+
+    A = matrices.random_scattered(n, 24, seed=1, bandwidth=min(2**14, n // 4),
+                                  block=8, edge="reflect")
+    return ((A + A.T) / 2).tocsr()
+
+
+def phase_hermitian(mats, counts, device="cuda"):
+    """Phases 10-13: partial_eigh on the card (solves I, J, K) and the host
+    tier (solve L).  Returns [(label, history, wall), ...]."""
+    import numpy as np
+    import torch
+    from scipy.sparse.linalg import eigs, eigsh
+
+    from arnoldi_tpu_torch import as_operator, partial_eigh, partial_schur
+    from arnoldi_tpu_torch._host import matrices
+
+    # cuSOLVER loads on its first eigh; keep that out of solve I's wall.
+    t0 = time.perf_counter()
+    torch.linalg.eigh(torch.eye(80, dtype=torch.float64, device=device))
+    sync()
+    print(f"first torch.linalg.eigh on the card: {time.perf_counter() - t0:.3f} s")
+
+    print("phase 10: solve I, partial_eigh laplace_2d(724), LA, k=5, m=80, "
+          "cgs2, device loop")
+    A = mats["laplace"]
+    side = round(A.shape[0] ** 0.5)
+    op = as_operator(A, dtype=torch.float64, device=device)
+    before = counts()
+    vals, V, hist_i, wall_i = eigh_solve("solve I", op, 5, 80, counts,
+                                         ortho="cgs2", max_restarts=5000)
+    check_launched("solve I", before, counts(),
+                   ("spmv_dia", "masked_project", "project_update_norm"))
+    if "trl.device_loop" not in hist_i.phases:
+        fail("solve I did not run the device loop")
+    check_laplace_eigh("solve I", A, vals, V, side)
+    del V, op
+
+    S = mats["symmetric"]
+    t0 = time.perf_counter()
+    ref = eigsh(S, 5, which="LA", tol=1e-8, ncv=40, return_eigenvectors=False)
+    print(f"  eigsh on S (host, ncv=40) {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    op = as_operator(S, dtype=torch.float64, device=device)
+    sync()
+    print(f"  operator {type(op).__name__} L={op.data.shape[1]} nnz={op.nnz} "
+          f"built in {time.perf_counter() - t0:.3f} s")
+    if type(op).__name__ != "EllOperator":
+        fail("S should route to ELL")
+
+    print(f"phase 11: solve J, partial_eigh S (n = 2^20), block_size={B_COLS}, "
+          "LA, k=5, m=40, device loop")
+    before = counts()
+    vals, V, hist_j, wall_j = eigh_solve("solve J", op, 5, 40, counts,
+                                         block_size=B_COLS)
+    check_launched("solve J", before, counts(), ("spmv_ell_cols",))
+    if "trl.device_loop" not in hist_j.phases:
+        fail("solve J did not run the device loop")
+    check_eigsh("solve J", S, vals, V, ref)
+    del V
+
+    print("phase 12: solve K, partial_eigh S, scalar, ortho='selective', LA, "
+          "k=5, m=40")
+    before = counts()
+    vals, V, hist_k, wall_k = eigh_solve("solve K", op, 5, 40, counts,
+                                         ortho="selective")
+    check_launched("solve K", before, counts(),
+                   ("spmv_ell", "masked_project", "project_update_norm"))
+    check_eigsh("solve K", S, vals, V, ref)
+    del V, op
+
+    print("phase 13: solve L, the host tier: SciPy input with device='cuda'")
+    before = counts()
+    nx, ny = 40, 39          # bench.py's correctness gate
+    A = matrices.laplace_2d(nx, ny)
+    t0 = time.perf_counter()
+    vals, V, hist_l = partial_eigh(A, 4, which="LA", stopping_criterion=1e-8,
+                                   max_restarts=3000, dtype=np.float64,
+                                   device=device)
+    sync()
+    wall_l = time.perf_counter() - t0
+    report_solve("solve L, bench gate", hist_l, wall_l, counts, host_tier=True)
+    want = np.sort(matrices.laplace_2d_eigen(nx, ny))[-4:]
+    err = float(np.abs(np.sort(vals) - want).max())
+    Vh = V.cpu().numpy()
+    res = float(np.linalg.norm(A @ Vh - Vh * vals[None, :], axis=0).max())
+    print(f"  gate: eigenvalue error {err:.3e}, residual {res:.3e} "
+          "(limits 100 tol = 1e-6)")
+    if not (err < 1e-6 and res < 1e-6):
+        fail("solve L failed the bench's correctness gate")
+    hosts = [(hist_l, V)]
+
+    A = matrices.mark(100)
+    t0 = time.perf_counter()
+    Q, T, hist_l2 = partial_schur(A, 5, sort_function="LR", max_dim=20,
+                                  stopping_criterion=1e-8, max_restarts=1000,
+                                  device=device)
+    sync()
+    wall_l2 = time.perf_counter() - t0
+    report_solve("solve L, mark(100) LR", hist_l2, wall_l2, counts,
+                 host_tier=True)
+    check_arpack("solve L, mark(100)", A, Q, T,
+                 eigs(A, 5, which="LR", tol=1e-8, return_eigenvectors=False))
+    hosts.append((hist_l2, Q))
+    for hist, out in hosts:
+        if out.device.type != torch.device(device).type:
+            fail(f"solve L returned a {out.device} tensor, not a {device} one")
+        if "engine.expand" not in hist.phases:
+            fail("solve L did not run in the C++ host engine")
+    if counts() != before:
+        fail(f"solve L launched kernels: {before} -> {counts()}")
+    return [("I", hist_i, wall_i), ("J", hist_j, wall_j), ("K", hist_k, wall_k),
+            ("L_gate", hist_l, wall_l), ("L_mark100", hist_l2, wall_l2)]
+
+
 def main():
     import torch
 
@@ -417,10 +623,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    os.environ.setdefault("ARNOLDI_PHASES", "1")
+    os.environ["ARNOLDI_PHASES"] = "1"   # the tier checks read the phases
 
     from arnoldi_tpu_torch import as_operator
-    from arnoldi_tpu_torch._host import matrices, native_dense_tier
+    from arnoldi_tpu_torch._host import host_engine, matrices, native_dense_tier
     from arnoldi_tpu_torch.ops import kernels
 
     smi = subprocess.run(
@@ -433,6 +639,12 @@ def main():
     native = native_dense_tier.available()
     print(f"host dense tier: {'native C++' if native else 'SciPy LAPACK'} "
           f"({time.perf_counter() - t0:.2f} s to load or build)")
+    t0 = time.perf_counter()
+    engine = host_engine.available()
+    print(f"host_engine.available(): {engine} "
+          f"({time.perf_counter() - t0:.2f} s to load or build)")
+    if not engine:
+        fail("the C++ host engine did not build")
     print("phase 0: build")
     t0 = time.perf_counter()
     log = kernels.build()
@@ -450,6 +662,7 @@ def main():
         "rect": rectangular(200_000, 300_000, max_degree=60, seed=0),
         "window": matrices.random_scattered(2**20, 24, seed=2,
                                             bandwidth=1024, block=8),
+        "symmetric": symmetric_scattered(2**20),
     }
     print(f"  host matrices built in {time.perf_counter() - t0:.2f} s")
 
@@ -574,18 +787,22 @@ def main():
     check_arpack("solve H", A_win, Q, T, ref_d)
     del Q, op
 
+    hermitian = phase_hermitian(mats, counts)
+
     final = counts()
     missing = [k for k, v in final.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
-    print(f"launches on the main path (phases 2-9): {final}")
+    print(f"launches on the main path (phases 2-13): {final}")
     summary = {label: {"matvecs": h.total_matvecs, "restarts": len(h.residual_trace),
                        "wall_s": w, "ms_per_matvec": 1e3 * w / h.total_matvecs}
                for label, h, w in (("A", hist_a, wall_a), ("B", hist_b, wall_b),
                                    ("C", hist_c, wall_c), ("D", hist_d, wall_d),
                                    ("E", hist_e, wall_e), ("F", hist_f, wall_f),
-                                   ("G", hist_g, wall_g), ("H", hist_h, wall_h))}
+                                   ("G", hist_g, wall_g), ("H", hist_h, wall_h),
+                                   *hermitian)}
     print(f"solves: {json.dumps(summary)}")
+    print(f"card: {smi}")
 
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,

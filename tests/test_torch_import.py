@@ -1,6 +1,7 @@
-"""``arnoldi_tpu_torch`` imports and solves (scalar, and block over BSR-8)
-where JAX cannot be imported, and a CPU solve never builds or loads the
-CUDA kernel library."""
+"""``arnoldi_tpu_torch`` imports and solves (``partial_schur`` scalar, block
+over BSR-8 and on the host tier; ``partial_eigh`` on both loops and on the
+host tier) where JAX cannot be imported, and a CPU solve never builds or
+loads the CUDA kernel library."""
 
 import json
 import os
@@ -17,16 +18,26 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 import arnoldi_tpu_torch
-from arnoldi_tpu_torch import partial_schur
+from arnoldi_tpu_torch import partial_eigh, partial_schur
 from arnoldi_tpu_torch._host import matrices
 from arnoldi_tpu_torch.ops import kernels
 from arnoldi_tpu_torch.ops.kernels import _build
+from arnoldi_tpu_torch.solvers.workspace import uses_host_tier
 A = matrices.mark(12)
+assert uses_host_tier(A, device="cpu")
 Q, T, hist = partial_schur(A, 3, sort_function="LR", device="cpu")
 res = np.linalg.norm(A @ Q.numpy() - Q.numpy() @ T.numpy(), axis=0).max()
 op = arnoldi_tpu_torch.as_operator(A, format="bsr", device="cpu")
 Q, T, hist = partial_schur(op, 3, sort_function="LR", block_size=2)
 res = max(res, np.linalg.norm(A @ Q.numpy() - Q.numpy() @ T.numpy(), axis=0).max())
+S = matrices.laplace_2d(12, 11)
+solves = [partial_eigh(S, 3, device="cpu"),                     # host tier
+          partial_eigh(arnoldi_tpu_torch.as_operator(S, device="cpu"), 3),
+          partial_eigh(arnoldi_tpu_torch.as_operator(S, device="cpu"), 3,
+                       device_loop=False, ortho="selective")]
+for vals, vecs, _ in solves:
+    V = vecs.numpy()
+    res = max(res, np.linalg.norm(S @ V - V * vals, axis=0).max())
 print(json.dumps({
     "residual": float(res),
     "jax_modules": sorted(m for m, mod in sys.modules.items()

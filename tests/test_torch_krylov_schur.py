@@ -192,7 +192,6 @@ def test_host_input_needs_a_device():
     dict(resume=True),
     dict(refine="dw"),
     dict(dtype=np.float32, stopping_criterion=1e-8),     # JAX would refine
-    dict(ortho="mgs_dgks"),
     dict(v0=np.ones(55, np.complex128)),
 ], ids=lambda kw: next(iter(kw)))
 def test_outside_the_slice_raises(kwargs):

@@ -122,8 +122,8 @@ def _assert_same_contract(got, ref, dtype):
 def test_registry():
     assert ortho.resolve_ortho("cgs2_pallas") is ortho.resolve_ortho("cgs2")
     assert ortho.resolve_ortho(ortho.cgs_dgks) is ortho.cgs_dgks
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ortho.resolve_ortho("mgs_dgks")
+    assert ortho.resolve_ortho("mgs_dgks") is ortho.mgs_dgks
+    assert ortho.resolve_ortho("mgs").keywords == {"eta": 0.0}
     with pytest.raises(ValueError, match="Unknown"):
         ortho.resolve_ortho("householder")
 
