@@ -20,9 +20,9 @@ from pathlib import Path
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parents[2]
-_CSRC = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR.parent / "build" / "arnoldi_tpu_torch"
+from ...native import BUILD_DIR
+
+_CSRC = Path(__file__).resolve().parents[2] / "csrc"
 LIB_PATH = BUILD_DIR / "libkernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

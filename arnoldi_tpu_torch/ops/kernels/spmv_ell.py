@@ -5,7 +5,10 @@ Counterpart of ``arnoldi_tpu/ops/pallas/spmv_ell.py``.  On CUDA tensors
 of a ``(b, n_cols)`` array) launch the hand-written kernel
 ``csrc/spmv_ell.cu``; on CPU tensors they run :func:`ell_matvec_plain`.
 ``x`` may be longer than the row count (rectangular operators): the gather
-width comes from ``x``.
+width comes from ``x``.  The kernel picks its path from the row length L
+alone (a thread per row over tiles staged in shared memory for L <= 32, a
+warp per row above) and takes up to 8 columns a launch; the design note is
+at the top of ``csrc/spmv_ell.cu``.
 """
 
 import torch

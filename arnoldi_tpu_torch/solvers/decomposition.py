@@ -17,7 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._host import sorting
+from ..utils import sorting
 from ..linop import as_operator, cast_operator
 from ..ops.ortho import M_SQRT1_2, block_cgs2, resolve_ortho
 

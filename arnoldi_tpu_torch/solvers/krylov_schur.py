@@ -11,7 +11,8 @@ and the residual estimates are norms of the b coupling rows.
 
 Everything n-sized (the expansion and the truncation gemm) runs on the
 operator's device; everything m-sized runs on the host in float64 through
-the JAX package's NumPy/C++ dense tier (``_host.dense_tier``), with only the
+the port's copy of the JAX package's NumPy/C++ dense tier
+(``ops/dense_tier.py``, ``native/dense_tier.cpp``), with only the
 small H crossing the boundary once per restart.  A real operator runs in the
 real work dtype with the real Schur form (2x2 blocks for conjugate pairs),
 as the TPU path and the host tier do.
@@ -28,10 +29,12 @@ item): complex dtypes, ``mesh``, checkpointing and double-word refinement.
 import numpy as np
 import torch
 
-from .._host import History, dense_tier, sorting
 from ..device import check_matmul_precision, numpy_dtype, torch_dtype
 from ..linop import as_operator, cast_operator
+from ..ops import dense_tier
 from ..ops.ortho import block_cgs2
+from ..utils import sorting
+from ..utils.history import History
 from ..utils.profiling import phase_clock
 from ..utils.random import rand_normalized_vector
 from .decomposition import default_invariant_tol

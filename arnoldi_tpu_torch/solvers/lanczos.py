@@ -28,7 +28,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from .._host import History
+from ..utils.history import History
 from ..device import check_matmul_precision
 from ..linop import cast_operator
 from ..ops.ortho import M_SQRT1_2, cgs_dgks

@@ -24,7 +24,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from .._host import host_engine
+from ..native import host_engine
 from ..device import numpy_dtype, torch_dtype
 from .decomposition import (HOST_ORTHO, arnoldi_expand, block_arnoldi_expand,
                             host_arnoldi_expand)

@@ -9,9 +9,16 @@ nonzero before the last line is printed):
 0. build the CUDA kernels of ``arnoldi_tpu_torch/csrc`` with nvcc (one
    process per source, all started together);
 1. hold each kernel against its plain PyTorch version at the main path's
-   shapes, in float32 and float64, and time both with CUDA events: the
+   shapes, in float32 and float64, and time both with CUDA events (the
+   kernel also by the profiler's device time): the
    single-column kernels, the b = 8 column forms of DIA, ELL and both BSR
-   kernels, and BSR-8 on a matrix whose n is not a multiple of 8;
+   kernels, and BSR-8 on a matrix whose n is not a multiple of 8; compute
+   each kernel's bound (bytes over 3.35 TB/s or flops over the fp64 rate,
+   whichever is larger) and time the one PyTorch call that computes the same
+   function (cuSPARSE through ``torch.sparse``, cuBLAS) as its yardstick;
+   then ELL at edge shapes (row lengths 1-129 around the 32-slot rule, b =
+   1, 3, 8, 11, a row count that is not a multiple of the tile, unaligned
+   views) and on the symmetrized matrix S (L = 129) with its times;
 2. solve A: ``partial_schur`` on ``laplace_2d(724)`` (n = 524,176, DIA
    kernel + fused CGS2), LM, k = 5, m = 80, float64, tol 1e-8, checked
    against the analytic spectrum;
@@ -54,9 +61,9 @@ eigenvalues within 1e-9. A device solve that lands on the host tier fails
 the run. The kernels' launch counters are zeroed just before phase 2 and
 read after phase 13; every kernel must have launched, and each solve must
 have launched the kernels of its operator. The line before the last is a
-JSON object with each kernel's route, source, launches, error and times; the
-last line is ``{"ok": true, "device": {...}}``. Needs no network and imports
-nothing of JAX.
+JSON object with each kernel's route, source, launches, error, times, bound
+and library time; the last line is ``{"ok": true, "device": {...}}``.
+Needs no network and imports nothing of JAX.
 """
 
 import json
@@ -66,6 +73,13 @@ import time
 
 F64_LIMIT = 1e-12   # normwise relative error, float64
 F32_LIMIT = 1e-5    # normwise relative error, float32
+
+# The least time the card could take (bound_ms): the larger of the bytes a
+# kernel must move over the HBM3 rate and its float64 flops over the CUDA
+# cores' rate (NVIDIA's H100 SXM data sheet, 700 W; the tensor cores play no
+# part).  Every timed case is float64, the main path's dtype.
+HBM_BYTES_PER_S = 3.35e12
+FP64_FLOPS_PER_S = 34e12
 
 
 def fail(msg):
@@ -93,6 +107,38 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps=20, flush=None):
+    """Mean profiler device time of ``fn()`` a call: the durations of the
+    kernels and copies it launched, summed.  Unlike ``cuda_ms`` it leaves
+    out the host's pace between launches, which sets the event time of
+    kernels shorter than a launch's wrapper time.  With ``flush`` (a buffer
+    larger than the 50 MB L2) zeroed before each call, ``fn`` reads its
+    inputs from device memory, as it does in a solve; the zeroing's own
+    device time, profiled alone, is taken off.  None where the profiler
+    recorded no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def per_call(body):
+        body()
+        sync()
+        for _ in range(3):   # one profile on the H100 once recorded no device event
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    body()
+                sync()
+            us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                     if ev.device_type == DeviceType.CUDA)
+            if us > 0:
+                return us / 1e3 / reps
+        return None
+
+    if flush is None:
+        return per_call(fn)
+    both, alone = per_call(lambda: (flush.zero_(), fn())), per_call(flush.zero_)
+    return None if both is None or alone is None else both - alone
+
+
 def rel_err(got, want):
     import torch
 
@@ -102,13 +148,76 @@ def rel_err(got, want):
     return diff / (denom if denom else 1.0), (got - want).abs().max().item()
 
 
+def bound(nbytes, flops):
+    """``(bound_ms, bound_by)`` for a kernel that must move ``nbytes`` and
+    do ``flops``."""
+    by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    by_ops = 1e3 * flops / FP64_FLOPS_PER_S
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def ell_bytes(op, nb):
+    """Bytes an ELL product with ``nb`` columns must move: the matrix's
+    nonzeros and their int32 ids once (not the padded slots), x and y."""
+    item = op.data.element_size()
+    n_rows, n_cols = op.shape
+    return op.nnz * (item + 4) + nb * (n_rows + n_cols) * item
+
+
+def csr_tensor(A, dtype, device):
+    """``A`` as a torch CSR tensor with int32 indices on ``device`` (the
+    cuSPARSE yardstick's operand, built outside any timed region)."""
+    import numpy as np
+    import torch
+
+    A = A.tocsr()
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(A.indptr.astype(np.int32)).to(device),
+        torch.from_numpy(A.indices.astype(np.int32)).to(device),
+        torch.from_numpy(A.data).to(device=device, dtype=dtype), size=A.shape)
+
+
+def bsr_tensor(A, dtype, device):
+    """``A`` as a torch BSR tensor with (8, 8) blocks and int32 indices."""
+    import numpy as np
+    import torch
+
+    B = A.tobsr(blocksize=(8, 8))
+    return torch.sparse_bsr_tensor(
+        torch.from_numpy(B.indptr.astype(np.int32)).to(device),
+        torch.from_numpy(B.indices.astype(np.int32)).to(device),
+        torch.from_numpy(B.data).to(device=device, dtype=dtype), size=B.shape)
+
+
 class KernelRecord:
-    """Errors and times of one kernel over the phase-1 cases."""
+    """Errors, times and bound of one kernel over the phase-1 cases."""
 
     def __init__(self):
         self.max_abs_err = 0.0      # float64 cases (the main path's dtype)
         self.ms = None
+        self.dev_ms = None          # profiler device time a call
         self.plain_ms = None
+        self.bound_ms = None
+        self.bound_by = None
+        self.library_ms = None      # one PyTorch call computing the same function
+        self.library = "none"       # that call, or why there is none
+
+    def time(self, kernel, plain, flush=None):
+        """Time the kernel (CUDA events and profiler device time) and its
+        plain version."""
+        self.ms, self.dev_ms = cuda_ms(kernel), device_ms(kernel, flush=flush)
+        self.plain_ms = cuda_ms(plain)
+
+    def set_bound(self, nbytes, flops):
+        self.bound_ms, self.bound_by = bound(nbytes, flops)
+
+    def time_library(self, label, fn, want):
+        """Time ``fn`` (one PyTorch call, operands built beforehand) as this
+        kernel's yardstick, after checking it computes the same values."""
+        rel, _ = rel_err(fn(), want)
+        self.library, self.library_ms = label, cuda_ms(fn)
+        print(f"  library {label}: {self.library_ms:.4f} ms (rel err against "
+              f"the plain version {rel:.1e})")
 
     def check(self, label, dtype, got, want):
         import torch
@@ -148,10 +257,21 @@ def phase_kernels(mats):
                               spmv_banded.banded_matvec(op.bands, x, op.offsets),
                               spmv_banded.banded_matvec_plain(op.bands, x, op.offsets))
         if dtype == torch.float64:
-            rec["spmv_dia"].ms = cuda_ms(
-                lambda: spmv_banded.banded_matvec(op.bands, x, op.offsets))
-            rec["spmv_dia"].plain_ms = cuda_ms(
-                lambda: spmv_banded.banded_matvec_plain(op.bands, x, op.offsets))
+            r = rec["spmv_dia"]
+            # Its 29 MB fit the 50 MB L2, where back-to-back launches would
+            # find them; in a solve the CGS2 pass between two launches
+            # streams the basis through L2, so the device time is taken cold.
+            flush = torch.empty(2**23, dtype=torch.float64, device=dev)
+            r.time(lambda: spmv_banded.banded_matvec(op.bands, x, op.offsets),
+                   lambda: spmv_banded.banded_matvec_plain(op.bands, x, op.offsets),
+                   flush=flush)
+            del flush
+            n = op.shape[0]
+            r.set_bound(op.bands.numel() * 8 + 2 * n * 8, 2 * op.bands.numel())
+            A_csr = csr_tensor(mats["laplace"], dtype, dev)
+            r.time_library("A_csr @ x (cuSPARSE SpMV)", lambda: A_csr @ x,
+                           spmv_banded.banded_matvec_plain(op.bands, x, op.offsets))
+            del A_csr
 
     for label, A in (("scattered 2^20", mats["scattered"]),
                      ("mark(1000)", mats["mark"]),
@@ -165,10 +285,14 @@ def phase_kernels(mats):
                                   spmv_ell.ell_matvec(op.data, op.cols, x),
                                   spmv_ell.ell_matvec_plain(op.data, op.cols, x))
             if dtype == torch.float64 and label == "scattered 2^20":
-                rec["spmv_ell"].ms = cuda_ms(
-                    lambda: spmv_ell.ell_matvec(op.data, op.cols, x))
-                rec["spmv_ell"].plain_ms = cuda_ms(
-                    lambda: spmv_ell.ell_matvec_plain(op.data, op.cols, x))
+                r = rec["spmv_ell"]
+                r.time(lambda: spmv_ell.ell_matvec(op.data, op.cols, x),
+                       lambda: spmv_ell.ell_matvec_plain(op.data, op.cols, x))
+                r.set_bound(ell_bytes(op, 1), 2 * op.nnz)
+                A_csr = csr_tensor(A, dtype, dev)
+                r.time_library("A_csr @ x (cuSPARSE SpMV)", lambda: A_csr @ x,
+                               spmv_ell.ell_matvec_plain(op.data, op.cols, x))
+                del A_csr
         del ell64, op
 
     n, mp1 = mats["laplace"].shape[0], 81
@@ -193,14 +317,25 @@ def phase_kernels(mats):
                 f"project_update_norm ||w'||^2 n_active={na}", dtype,
                 ns.reshape(1), nsp.reshape(1))
             if dtype == torch.float64 and na == 80:
-                rec["masked_project"].ms = cuda_ms(
-                    lambda: ortho_fused.masked_project(Vs, w, na))
-                rec["masked_project"].plain_ms = cuda_ms(
-                    lambda: ortho_fused.masked_project_plain(Vs, w, na))
-                rec["project_update_norm"].ms = cuda_ms(
-                    lambda: ortho_fused.project_update_norm(Vs, w, c_plain, na))
-                rec["project_update_norm"].plain_ms = cuda_ms(
-                    lambda: ortho_fused.project_update_norm_plain(Vs, w, c_plain, na))
+                r = rec["masked_project"]
+                r.time(lambda: ortho_fused.masked_project(Vs, w, na),
+                       lambda: ortho_fused.masked_project_plain(Vs, w, na))
+                r.set_bound((na * n + n + na) * 8, 2 * na * n)
+                Va = Vs[:na]
+                r.time_library("Vt[:k] @ w (cuBLAS gemv)", lambda: Va @ w, c_plain[:na])
+                r = rec["project_update_norm"]
+                r.time(lambda: ortho_fused.project_update_norm(Vs, w, c_plain, na),
+                       lambda: ortho_fused.project_update_norm_plain(Vs, w, c_plain, na))
+                r.set_bound((na * n + 2 * n + na + 1) * 8, 2 * na * n + 2 * n)
+                # No one call also returns ||w'||^2: time the update alone,
+                # as a yardstick for part of the function (library_ms stays
+                # null).
+                ca = c_plain[:na]
+                partial = cuda_ms(lambda: torch.addmv(w, Va.T, ca, alpha=-1))
+                r.library = (f"none (torch.addmv(w, Vt[:k].T, c, alpha=-1), the "
+                             f"update without the norm: {partial:.4f} ms)")
+                print(f"  library for project_update_norm: {r.library}")
+                del Va, ca
         if dtype == torch.float64:
             # The default ortho, cgs_dgks, on a w mostly inside the span, so
             # that its DGKS second pass runs: the CUDA composition against
@@ -218,8 +353,17 @@ def phase_kernels(mats):
     sync()
     phase_kernels_cols_and_bsr(mats, rec, gen)
     sync()
+    phase_ell_edges(mats, rec, gen)
+    sync()
+    # The share of the bound against the event time and the device time:
+    # they differ where the host paces the launches.
     for name, r in rec.items():
-        print(f"  time {name:<22} kernel {r.ms:.4f} ms   plain {r.plain_ms:.4f} ms")
+        lib = "none" if r.library_ms is None else f"{r.library_ms:.4f} ms"
+        dev = ("device not measured" if r.dev_ms is None else
+               f"device {r.dev_ms:.4f} ms, {100 * r.bound_ms / r.dev_ms:.0f} %")
+        print(f"  time {name:<22} kernel {r.ms:.4f} ms   plain {r.plain_ms:.4f} ms   "
+              f"bound {r.bound_ms:.4f} ms ({r.bound_by}; {100 * r.bound_ms / r.ms:.0f} %; "
+              f"{dev})   library {lib}: {r.library}")
     return rec
 
 
@@ -241,8 +385,8 @@ def phase_kernels_cols_and_bsr(mats, rec, gen):
         r = rec[name]
         r.check(label, dtype, kernel(), plain())
         if timed and dtype == torch.float64:
-            r.ms = cuda_ms(kernel)
-            r.plain_ms = cuda_ms(plain)
+            r.time(kernel, plain)
+        return timed and dtype == torch.float64
 
     # The tolerances: as above, each kernel sums the same products as its
     # plain version in another order (einsum or gather-then-sum there).
@@ -250,10 +394,17 @@ def phase_kernels_cols_and_bsr(mats, rec, gen):
     for dtype in (torch.float64, torch.float32):
         op = cast_operator(dia64, dtype)
         X = torch.randn(B_COLS, op.shape[0], generator=gen, device=dev, dtype=dtype)
-        case("spmv_dia_cols", f"DIA laplace_2d(724) b={B_COLS}", dtype,
-             lambda: spmv_banded.banded_matmat(op.bands, X, op.offsets),
-             lambda: spmv_banded.banded_matvec_plain(op.bands, X, op.offsets),
-             timed=True)
+        if case("spmv_dia_cols", f"DIA laplace_2d(724) b={B_COLS}", dtype,
+                lambda: spmv_banded.banded_matmat(op.bands, X, op.offsets),
+                lambda: spmv_banded.banded_matvec_plain(op.bands, X, op.offsets),
+                timed=True):
+            r, n = rec["spmv_dia_cols"], op.shape[0]
+            r.set_bound(op.bands.numel() * 8 + 2 * B_COLS * n * 8,
+                        2 * op.bands.numel() * B_COLS)
+            A_csr, Xt = csr_tensor(mats["laplace"], dtype, dev), X.T.contiguous()
+            r.time_library("A_csr @ Xt (cuSPARSE SpMM)", lambda: A_csr @ Xt,
+                           spmv_banded.banded_matvec_plain(op.bands, X, op.offsets).T)
+            del A_csr, Xt
         if not torch.equal(spmv_banded.banded_matmat(op.bands, X, op.offsets)[3],
                            spmv_banded.banded_matvec(op.bands, X[3], op.offsets)):
             fail("spmv_dia_cols: a column differs from the single-column kernel")
@@ -263,10 +414,16 @@ def phase_kernels_cols_and_bsr(mats, rec, gen):
     for dtype in (torch.float64, torch.float32):
         op = cast_operator(ell64, dtype)
         X = torch.randn(B_COLS, op.shape[1], generator=gen, device=dev, dtype=dtype)
-        case("spmv_ell_cols", f"ELL scattered 2^20 b={B_COLS}", dtype,
-             lambda: spmv_ell.ell_matmat(op.data, op.cols, X),
-             lambda: spmv_ell.ell_matvec_plain(op.data, op.cols, X),
-             timed=True)
+        if case("spmv_ell_cols", f"ELL scattered 2^20 b={B_COLS}", dtype,
+                lambda: spmv_ell.ell_matmat(op.data, op.cols, X),
+                lambda: spmv_ell.ell_matvec_plain(op.data, op.cols, X),
+                timed=True):
+            r = rec["spmv_ell_cols"]
+            r.set_bound(ell_bytes(op, B_COLS), 2 * op.nnz * B_COLS)
+            A_csr, Xt = csr_tensor(mats["scattered"], dtype, dev), X.T.contiguous()
+            r.time_library("A_csr @ Xt (cuSPARSE SpMM)", lambda: A_csr @ Xt,
+                           spmv_ell.ell_matvec_plain(op.data, op.cols, X).T)
+            del A_csr, Xt
         if not torch.equal(spmv_ell.ell_matmat(op.data, op.cols, X)[5],
                            spmv_ell.ell_matvec(op.data, op.cols, X[5])):
             fail("spmv_ell_cols: a column differs from the single-column kernel")
@@ -294,6 +451,8 @@ def phase_kernels_cols_and_bsr(mats, rec, gen):
                  lambda: spmv_bsr.bsr_matmat(blk, ids, X, nr),
                  lambda: spmv_bsr.bsr_matvec_plain(blk, ids, X, nr),
                  timed="spmv_bsr_cols" in timed)
+            if timed and dtype == torch.float64:
+                bsr_yardsticks(rec, timed, mats[key], op, x, X)
             if label == "scattered 2^20":
                 continue   # its window is wider than shared memory
             case("spmv_bsr_window", f"BSR window {label}", dtype,
@@ -321,6 +480,126 @@ def phase_kernels_cols_and_bsr(mats, rec, gen):
     for cols, single in one.items():
         print(f"  {cols}: b={B_COLS} in one call {rec[cols].ms:.4f} ms; "
               f"{B_COLS} single-column calls {B_COLS * rec[single].ms:.4f} ms")
+
+
+ELL_EDGE_L = (1, 4, 24, 25, 32, 33, 129)   # both sides of the 32-slot rule
+ELL_EDGE_NB = (1, 3, 8, 11)                 # 11: a launch of 8 columns and one of 3
+ELL_EDGE_SHAPE = (100_003, 70_001)          # rows (not a multiple of a tile), columns
+
+
+def phase_ell_edges(mats, rec, gen):
+    """Phase 1, ELL edge shapes: random rectangular ELL operators of
+    ELL_EDGE_SHAPE (a row count that is not a multiple of the 32- or 64-row
+    tile) at each row length in ELL_EDGE_L, b in ELL_EDGE_NB, float64 and float32,
+    plus views one row in (not 16-byte aligned: the element-wise staging
+    copies), each against the plain version; then the symmetrized matrix S
+    (L = 129, solves J and K) timed against its bound and cuSPARSE."""
+    import torch
+
+    from arnoldi_tpu_torch.linop import EllOperator
+    from arnoldi_tpu_torch.ops.kernels import spmv_ell
+
+    dev = torch.device("cuda")
+    n_rows, n_cols = ELL_EDGE_SHAPE
+    times = {}
+    for L in ELL_EDGE_L:
+        data64 = torch.randn(n_rows, L, generator=gen, device=dev, dtype=torch.float64)
+        cols = torch.randint(0, n_cols, (n_rows, L), generator=gen, device=dev,
+                             dtype=torch.int32)
+        for dtype in (torch.float64, torch.float32):
+            data = data64.to(dtype)
+            for nb in ELL_EDGE_NB:
+                X = torch.randn(nb, n_cols, generator=gen, device=dev, dtype=dtype)
+                label = f"ELL edge ({n_rows}, L={L}) x {n_cols}"
+                if nb == 1:
+                    rec["spmv_ell"].check(label, dtype,
+                                          spmv_ell.ell_matvec(data, cols, X[0]),
+                                          spmv_ell.ell_matvec_plain(data, cols, X[0]))
+                    continue
+                Y = spmv_ell.ell_matmat(data, cols, X)
+                rec["spmv_ell_cols"].check(f"{label} b={nb}", dtype, Y,
+                                           spmv_ell.ell_matvec_plain(data, cols, X))
+                if not torch.equal(Y[nb - 1], spmv_ell.ell_matvec(data, cols, X[nb - 1])):
+                    fail(f"spmv_ell_cols L={L} b={nb}: a column differs from the "
+                         "single-column kernel")
+            if L in (25, 33):
+                dv, cv = data[1:], cols[1:]
+                X = torch.randn(3, n_cols, generator=gen, device=dev, dtype=dtype)
+                rec["spmv_ell"].check(f"ELL edge L={L}, view one row in", dtype,
+                                      spmv_ell.ell_matvec(dv, cv, X[0]),
+                                      spmv_ell.ell_matvec_plain(dv, cv, X[0]))
+                rec["spmv_ell_cols"].check(f"ELL edge L={L}, view one row in, b=3",
+                                           dtype, spmv_ell.ell_matmat(dv, cv, X),
+                                           spmv_ell.ell_matvec_plain(dv, cv, X))
+        x = torch.randn(n_cols, generator=gen, device=dev, dtype=torch.float64)
+        X = torch.randn(B_COLS, n_cols, generator=gen, device=dev, dtype=torch.float64)
+        # device time: at this size the host paces the launches
+        times[L] = (device_ms(lambda: spmv_ell.ell_matvec(data64, cols, x)),
+                    device_ms(lambda: spmv_ell.ell_matmat(data64, cols, X)))
+        del data64, data, cols, X, x
+    for L, (one, eight) in times.items():
+        nnz = n_rows * L
+        b1 = bound(nnz * 12 + (n_rows + n_cols) * 8, 2 * nnz)[0]
+        b8 = bound(nnz * 12 + B_COLS * (n_rows + n_cols) * 8, 2 * nnz * B_COLS)[0]
+        print(f"  ELL edge L={L:<3} float64, device time: spmv_ell {one:.4f} ms "
+              f"({100 * b1 / one:.0f} % of bound {b1:.4f}), b={B_COLS} {eight:.4f} ms "
+              f"({100 * b8 / eight:.0f} % of bound {b8:.4f})")
+
+    S = mats["symmetric"]
+    op = EllOperator.from_scipy(S, device=dev)
+    x = torch.randn(op.shape[1], generator=gen, device=dev, dtype=torch.float64)
+    X = torch.randn(B_COLS, op.shape[1], generator=gen, device=dev, dtype=torch.float64)
+    out = {"L": op.data.shape[1], "nnz": op.nnz}
+    for tag, nb, kernel, plain in (
+            ("spmv_ell", 1, lambda: spmv_ell.ell_matvec(op.data, op.cols, x),
+             lambda: spmv_ell.ell_matvec_plain(op.data, op.cols, x)),
+            ("spmv_ell_cols", B_COLS, lambda: spmv_ell.ell_matmat(op.data, op.cols, X),
+             lambda: spmv_ell.ell_matvec_plain(op.data, op.cols, X))):
+        r = KernelRecord()
+        r.check(f"ELL S (L={out['L']}) b={nb}", torch.float64, kernel(), plain())
+        rec[tag].max_abs_err = max(rec[tag].max_abs_err, r.max_abs_err)
+        r.time(kernel, plain)
+        r.set_bound(ell_bytes(op, nb), 2 * op.nnz * nb)
+        A_csr = csr_tensor(S, torch.float64, dev)
+        if nb == 1:
+            r.time_library("S_csr @ x (cuSPARSE SpMV)", lambda: A_csr @ x, plain())
+        else:
+            Xt = X.T.contiguous()
+            r.time_library("S_csr @ Xt (cuSPARSE SpMM)", lambda: A_csr @ Xt, plain().T)
+            del Xt
+        del A_csr
+        stored = op.data.numel() * 12 + nb * 2 * op.shape[0] * 8
+        out[tag] = {"ms": r.ms, "dev_ms": r.dev_ms, "plain_ms": r.plain_ms,
+                    "bound_ms": r.bound_ms,
+                    "library_ms": r.library_ms,
+                    "stored_bytes_TBps": stored / r.ms / 1e9}
+    print(f"  ELL S: {json.dumps(out)}")
+    del op, x, X
+
+
+def bsr_yardsticks(rec, names, A, op, x, X):
+    """Bounds and cuSPARSE yardsticks of the BSR kernels in ``names``, at
+    BSR-8 ``op`` of the SciPy matrix ``A`` (float64).  The bytes count the
+    matrix's nonzeros and its nonzero blocks' ids, not zero fill or padding."""
+    import torch
+
+    from arnoldi_tpu_torch.ops.kernels import spmv_bsr
+
+    nnz = A.nnz
+    nnzb = int((op.blocks != 0).any(-1).any(-1).sum())
+    io = (op.n_rows + op.n_cols) * 8
+    A_bsr, Xt = bsr_tensor(A, torch.float64, x.device), X.T.contiguous()
+    for name in names:
+        cols = name.endswith("_cols")
+        nb = B_COLS if cols else 1
+        rec[name].set_bound(nnz * 8 + nnzb * 4 + nb * io, 2 * nnz * nb)
+        want = spmv_bsr.bsr_matvec_plain(op.blocks, op.block_cols, X if cols else x,
+                                         op.n_rows)
+        fn = (lambda: A_bsr @ Xt) if cols else (lambda: A_bsr @ x)
+        rec[name].time_library(f"A_bsr @ {'Xt' if cols else 'x'} (cuSPARSE "
+                               f"BSR {'SpMM' if cols else 'SpMV'}, blocks (8, 8))",
+                               fn, want.T if cols else want)
+    del A_bsr, Xt
 
 
 def solve(label, op, nev, which, max_dim, sync_counts, block_size=1, p=None,
@@ -395,7 +674,7 @@ def check_laplace_eigh(label, A, vals, V, side):
     largest one found."""
     import numpy as np
 
-    from arnoldi_tpu_torch._host import matrices
+    from arnoldi_tpu_torch import matrices
 
     eigh_residual(label, A, vals, V)
     exact = np.sort(matrices.laplace_2d_eigen(side))
@@ -423,7 +702,7 @@ def check_laplace(label, A, Q, T, side):
     """Hold a laplace_2d(side) solve against the analytic spectrum."""
     import numpy as np
 
-    from arnoldi_tpu_torch._host import matrices
+    from arnoldi_tpu_torch import matrices
 
     res, lam = schur_residual(A, Q, T)
     exact = np.sort(matrices.laplace_2d_eigen(side))
@@ -500,7 +779,7 @@ def schur_residual(A, Q, T):
 def symmetric_scattered(n):
     """S = (A + A^T) / 2 of the scattered matrix with reflected edges (the
     default clipped edges make hub rows that ELL refuses once transposed)."""
-    from arnoldi_tpu_torch._host import matrices
+    from arnoldi_tpu_torch import matrices
 
     A = matrices.random_scattered(n, 24, seed=1, bandwidth=min(2**14, n // 4),
                                   block=8, edge="reflect")
@@ -515,7 +794,7 @@ def phase_hermitian(mats, counts, device="cuda"):
     from scipy.sparse.linalg import eigs, eigsh
 
     from arnoldi_tpu_torch import as_operator, partial_eigh, partial_schur
-    from arnoldi_tpu_torch._host import matrices
+    from arnoldi_tpu_torch import matrices
 
     # cuSOLVER loads on its first eigh; keep that out of solve I's wall.
     t0 = time.perf_counter()
@@ -626,7 +905,9 @@ def main():
     os.environ["ARNOLDI_PHASES"] = "1"   # the tier checks read the phases
 
     from arnoldi_tpu_torch import as_operator
-    from arnoldi_tpu_torch._host import host_engine, matrices, native_dense_tier
+    from arnoldi_tpu_torch import matrices
+    from arnoldi_tpu_torch.native import dense_tier as native_dense_tier
+    from arnoldi_tpu_torch.native import host_engine
     from arnoldi_tpu_torch.ops import kernels
 
     smi = subprocess.run(
@@ -807,7 +1088,9 @@ def main():
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": final[name], "max_abs_err": rec[name].max_abs_err,
-         "ms": rec[name].ms, "plain_ms": rec[name].plain_ms}
+         "ms": rec[name].ms, "plain_ms": rec[name].plain_ms,
+         "bound_ms": rec[name].bound_ms, "bound_by": rec[name].bound_by,
+         "library_ms": rec[name].library_ms}
         for name, (_, source, replaces) in kernels.KERNELS.items()]}
     print(json.dumps(report))
     print(smi)

@@ -34,7 +34,7 @@ from arnoldi_tpu_torch import (
     partial_eigh,
     partial_schur,
 )
-from arnoldi_tpu_torch._host import host_engine
+from arnoldi_tpu_torch.native import host_engine
 from arnoldi_tpu_torch.ops.ortho import ORTHO_KERNELS
 from arnoldi_tpu_torch.solvers.workspace import uses_host_tier
 from common import find_best_matching

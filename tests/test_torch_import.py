@@ -1,7 +1,9 @@
 """``arnoldi_tpu_torch`` imports and solves (``partial_schur`` scalar, block
 over BSR-8 and on the host tier; ``partial_eigh`` on both loops and on the
-host tier) where JAX cannot be imported, and a CPU solve never builds or
-loads the CUDA kernel library."""
+host tier) where JAX cannot be imported, a CPU solve never builds or loads
+the CUDA kernel library, and nothing is loaded from the JAX package's tree:
+no module and no shared library (the port's own host libraries build under
+``build/arnoldi_tpu_torch/``)."""
 
 import json
 import os
@@ -19,7 +21,7 @@ import torch
 torch.set_num_threads(1)
 import arnoldi_tpu_torch
 from arnoldi_tpu_torch import partial_eigh, partial_schur
-from arnoldi_tpu_torch._host import matrices
+from arnoldi_tpu_torch import matrices
 from arnoldi_tpu_torch.ops import kernels
 from arnoldi_tpu_torch.ops.kernels import _build
 from arnoldi_tpu_torch.solvers.workspace import uses_host_tier
@@ -46,6 +48,12 @@ print(json.dumps({
     "reference_package_imported": "arnoldi_tpu" in sys.modules,
     "kernel_library_loaded": _build.is_loaded(),
     "launches": kernels.launch_counts(),
+    "module_files": sorted(str(getattr(mod, "__file__", None) or "")
+                           for mod in list(sys.modules.values())
+                           if mod is not None),
+    "shared_libraries": sorted({line.split()[-1]
+                                for line in open("/proc/self/maps")
+                                if ".so" in line.split()[-1]}),
 }))
 """
 
@@ -61,3 +69,14 @@ def test_imports_and_solves_without_jax():
     assert not out["reference_package_imported"]
     assert not out["kernel_library_loaded"]
     assert set(out["launches"].values()) == {0}
+    reference = REPO / "arnoldi_tpu"
+    assert [f for f in out["module_files"]
+            if Path(f).is_relative_to(reference)] == []
+    assert [lib for lib in out["shared_libraries"]
+            if Path(lib).is_relative_to(reference)] == []
+    # the host-tier solve ran the port's own C++ libraries, built outside
+    # the source tree
+    built = {Path(lib).name: Path(lib).parent for lib in out["shared_libraries"]
+             if Path(lib).name in ("libdense_tier.so", "libhost_engine.so")}
+    assert built == {"libdense_tier.so": REPO / "build" / "arnoldi_tpu_torch",
+                     "libhost_engine.so": REPO / "build" / "arnoldi_tpu_torch"}

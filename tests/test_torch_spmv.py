@@ -15,7 +15,7 @@ from arnoldi_tpu.ops.pallas.spmv_banded import banded_matvec_pallas
 from arnoldi_tpu.ops.pallas.spmv_ell import ell_matvec_pallas
 from arnoldi_tpu_torch import BandedOperator, DenseOperator, EllOperator, as_operator
 from arnoldi_tpu_torch.ops.kernels.spmv_banded import banded_matvec
-from arnoldi_tpu_torch.ops.kernels.spmv_ell import ell_matvec
+from arnoldi_tpu_torch.ops.kernels.spmv_ell import ell_matmat, ell_matvec
 from torch_parity import port_operator
 
 torch.set_num_threads(1)
@@ -74,6 +74,49 @@ def test_ell_matches_pallas(case, dtype):
     np.testing.assert_allclose(y.numpy(), y_ref, atol=ATOL[dtype])
     np.testing.assert_allclose(y.numpy(), A @ x.astype(np.float64),
                                atol=10 * ATOL[dtype])
+
+
+def _random_ell(n_rows, n_cols, L, dtype, seed):
+    """A random ELL operator: ``n_rows`` rows of ``L`` slots, ids below
+    ``n_cols``."""
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n_rows, L)).astype(dtype)
+    cols = rng.integers(0, n_cols, size=(n_rows, L)).astype(np.int32)
+    return data, cols
+
+
+#: (n_rows, n_cols): neither row count a multiple of the kernel's 32- or
+#: 64-row tile; wider and narrower than tall.
+ELL_EDGE_SHAPES = {"wide": (301, 517), "narrow": (300, 97)}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("shape", sorted(ELL_EDGE_SHAPES))
+@pytest.mark.parametrize("L", [1, 25, 33, 129])   # both sides of the 32-slot rule
+def test_ell_edge_shapes_match_pallas(L, shape, dtype):
+    n_rows, n_cols = ELL_EDGE_SHAPES[shape]
+    data, cols = _random_ell(n_rows, n_cols, L, dtype, seed=L)
+    x = np.random.default_rng(7).standard_normal(n_cols).astype(dtype)
+    y_ref = np.asarray(ell_matvec_pallas(jnp.asarray(data), jnp.asarray(cols),
+                                         jnp.asarray(x), interpret=True,
+                                         block_rows=64))
+    y = ell_matvec(torch.from_numpy(data), torch.from_numpy(cols), torch.from_numpy(x))
+    np.testing.assert_allclose(y.numpy(), y_ref, atol=ATOL[dtype] * np.sqrt(L))
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("L", [1, 25, 33, 129])
+def test_ell_columns_match_pallas_per_column(L, b):
+    n_rows, n_cols = ELL_EDGE_SHAPES["wide"]
+    data, cols = _random_ell(n_rows, n_cols, L, np.float64, seed=100 + L)
+    X = np.random.default_rng(b).standard_normal((b, n_cols))
+    Y = ell_matmat(torch.from_numpy(data), torch.from_numpy(cols), torch.from_numpy(X))
+    assert Y.shape == (b, n_rows)
+    for j in range(b):
+        y_ref = np.asarray(ell_matvec_pallas(jnp.asarray(data), jnp.asarray(cols),
+                                             jnp.asarray(X[j]), interpret=True,
+                                             block_rows=64))
+        np.testing.assert_allclose(Y[j].numpy(), y_ref, atol=ATOL[np.float64] * np.sqrt(L))
 
 
 FROM_SCIPY_CASES = {
