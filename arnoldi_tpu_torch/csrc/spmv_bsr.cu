@@ -6,10 +6,11 @@
 // Two kernels:
 //  * spmv_bsr_kernel (gather) replaces arnoldi_tpu/ops/pallas/spmv_bsr.py,
 //    bsr_matvec_pallas: x is read straight from device memory.
-//  * spmv_bsr_window_kernel replaces bsr_matvec_pallas16 (with its host
-//    packing pack_bsr16): a tile of block-rows reads x only from the window
-//    [tile_base, tile_base + Wt) block-columns, which the thread block stages
-//    in shared memory first.
+//  * the window kernel replaces bsr_matvec_pallas16 (with its host packing
+//    pack_bsr16): a tile of block-rows reads x only from the window
+//    [tile_base, tile_base + Wt) block-columns, staged in shared memory.
+//    spmv_bsr_window8_kernel runs 8 x 8 blocks (the format's use),
+//    spmv_bsr_window_kernel every other shape.
 // Neither Pallas kernel compiled on the TPU; the JAX package runs BSR as an
 // XLA take + einsum, and its BsrOperator.matvec is the oracle of both.
 //
@@ -20,7 +21,8 @@
 // included, for 26.2M nonzeros) in f64 a single column is at least 286 MB a
 // call (blocks, ids, x once, y), where ELL needs 331 MB.
 //
-// Design (both kernels): one warp per block-row.  Lane t owns the block
+// Design (the gather kernel and the general window kernel): one warp per
+// block-row.  Lane t owns the block
 // elements e = t + 32*k (k < K, K = ceil(r*c / 32)), so the warp reads each
 // stored block as K coalesced 256-byte lines (an 8 x 8 f64 block is 512
 // contiguous bytes).  Since c divides 32, lane t always meets block column
@@ -36,15 +38,61 @@
 // and id once for all of them; grid.y walks further chunks of columns.
 //
 // The window kernel ports the TPU kernel's window idea, not its lane
-// packing (lane = cc*16 + b16 existed only to fill 128 VPU lanes): a thread
-// block owns tile_brows consecutive block-rows, stages the window of each of
-// its columns in dynamic shared memory with plain cooperative loads (zero
-// past n_cols), then runs the same contraction reading x from shared
-// memory.  The host packing (ops/kernels/spmv_bsr.py, pack_bsr_window)
-// repoints padding slots into their row's own column range, so every id of
-// a tile lies in its window; ids outside it would read zero.  The base is
-// clamped as spmv_bsr.py:224 does.
+// packing (lane = cc*16 + b16 existed only to fill 128 VPU lanes): a tile of
+// tile_brows consecutive block-rows reads x only from its window of Wt
+// block-columns, staged in shared memory.  The host packing
+// (ops/kernels/spmv_bsr.py, pack_bsr_window) repoints padding slots into
+// their row's own column range, so every id of a tile lies in its window;
+// ids outside it read zero.  The base is clamped as spmv_bsr.py:224 does.
+//
+// Window kernel bound: the nonzeros' bytes (as above), and a floor of the
+// stored blocks: any kernel that reads the zero-filled 8 x 8 blocks moves
+// at least 287 MB (one column) or 405 MB (eight) in f64 on the banded-1024
+// matrix, 79 % and 85 % of the nonzero bound's time.
+//
+// 8 x 8 blocks take spmv_bsr_window8_kernel.  What held the first window
+// kernel (a block per tile that staged, synced, then contracted; 49 % of
+// the bound at one column and 10 % at eight on the H100) and what this
+// design does about each:
+//  * staging was synchronous and never overlapped: each block copied its
+//    window with plain loads (a division per element) and waited.  Now a
+//    persistent grid (the blocks that fit an SM times the SMs) walks a
+//    fixed, contiguous run of (tile, pass) items a block, and one thread
+//    copies each column's window with one cp.async.bulk (1-D TMA, counted
+//    on an mbarrier).  Where two stages fit (one column: 24.6 KB at
+//    Wt = 384 in f64) the next item's copy overlaps this item's
+//    contraction; where one does (eight columns: 197 KB) it follows it.
+//    x views whose pointer or column stride is not 16-byte aligned take
+//    4/8-byte cp.async copies instead (a fixed rule on the pointer and on
+//    n_cols * itemsize).
+//  * too few bytes in flight: a warp loaded one 512-byte block at a time in
+//    a loop of dynamic trip count.  Now a warp requests up to 4 blocks of
+//    each of two block-rows (a half-warp each) before their FMAs: 4 KB a
+//    warp, 64-96 KB an SM.  The blocks and ids are read with the streaming
+//    hint (evict first), so that they do not push the windows, which
+//    consecutive tiles share, out of L2.
+//  * at eight columns one block of 8 warps held an SM (196 KB of windows)
+//    and each warp walked 16 block-rows in turn.  Now one pass stages every
+//    column one stage fits (8 in f64 at Wt = 384), so each block is read
+//    once for all of them (passes of 4 read the blocks twice from device
+//    memory: L2 does not keep a tile's 256 KB across 132 SMs), a warp
+//    contracts a block-row pair with 4 columns at a time, and a block runs
+//    16 warps when it holds an SM.
+//  * the window is still ~3x a tile's own span (384 block-columns for rows
+//    that reach +-128 from the diagonal); it is staged mostly from L2.  A
+//    ring that copies only the block-columns entering the window measured
+//    slower on the H100 (its copies are many and small).
+// Summation order: lane (h, rq, q) holds rows rq and rq + 4 at block
+// columns q and q + 4 of every block of its block-row, keeps one partial a
+// row, column and q (FMAs over l in ascending order, as the gather kernel's
+// lane does), and sums a row as reduce_write says: the tree
+// ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)) that the gather kernel's
+// shuffle-down over its 8 lanes builds.  So the window kernel gives the
+// gather kernel's bits, and every column of a pass the single-column bits.
+// Other block shapes keep the first window kernel (spmv_bsr_window_kernel).
 #include <cuda_runtime.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
@@ -54,6 +102,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCols = 8;                  // columns a warp keeps in registers
 constexpr int kMaxSmem = 232448;          // 227 KB, one block's dynamic limit
+constexpr int kBarBytes = 16;             // the 8x8 window kernel's two mbarriers
 
 // The contraction of one block-row, x read through `load(j, block_col)`;
 // returns nothing, writes the row's outputs.  Every lane of the warp must
@@ -170,6 +219,332 @@ spmv_bsr_window_kernel(const T* __restrict__ blocks, const int* __restrict__ wco
                             load);
 }
 
+// ---- The 8 x 8 window kernel --------------------------------------------
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned long long* bar, unsigned bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+    unsigned done = 0;
+    while (!done)
+        asm volatile("{\n .reg .pred p;\n"
+                     " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     " selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+
+// One 1-D TMA copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+                 " [%0], [%1], %2, [%3];\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+                 : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+                 :: "r"(smem_addr(dst)), "l"(src), "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Sums a lane's partials into its row outputs.  Lane (h, rq, q) holds, for
+// each column j of its group, the partials p[j] of rows rq and rq + 4 of
+// its block-row at block columns q and q + 4: [rq, q], [rq, q + 4],
+// [rq + 4, q], [rq + 4, q + 4].  Every row's sum is the tree
+// ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)) over its 8 block columns
+// (the gather kernel's shuffle-down order; IEEE addition commutes): the
+// lane adds its own pair (p_q + p_{q+4}), then a reduce-scatter over q adds
+// the partner's at xor 2 (the lane keeps row rq + 4 * (q >> 1)) and at xor 1
+// (the lane keeps half of that row's columns; one column is summed in both
+// lanes).
+template <typename T, int G>
+__device__ __forceinline__ void reduce_write(const T (&p)[G][4], int q, int rq,
+                                             long long brow, bool live, int cnt,
+                                             T* __restrict__ y, long long n_rows) {
+    const bool hi1 = q & 2;
+    T v1[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+        const T top = p[j][0] + p[j][1], bottom = p[j][2] + p[j][3];
+        v1[j] = (hi1 ? bottom : top) + __shfl_xor_sync(0xffffffffu, hi1 ? top : bottom, 2);
+    }
+    const long long row = brow * 8 + rq + (hi1 ? 4 : 0);
+    if (G == 1) {
+        const T sum = v1[0] + __shfl_xor_sync(0xffffffffu, v1[0], 1);
+        if (live && (q & 1) == 0 && row < n_rows) y[row] = sum;
+        return;
+    }
+    constexpr int H = G / 2;
+    const bool hi2 = q & 1;
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+        const T keep = hi2 ? v1[H + k] : v1[k], give = hi2 ? v1[k] : v1[H + k];
+        const T sum = keep + __shfl_xor_sync(0xffffffffu, give, 1);
+        const int j = (hi2 ? H : 0) + k;
+        if (live && j < cnt && row < n_rows) y[j * n_rows + row] = sum;
+    }
+}
+
+// Item i of a launch is (tile i / passes, pass i % passes); pass p covers
+// columns [p * per_pass, min(nb, (p + 1) * per_pass)).  Block g of G runs
+// items [g * n / G, (g + 1) * n / G): ops/kernels/spmv_bsr.py,
+// window_items, is the same plan on the host.  A staged column holds the
+// window's Wt block-columns, then a zero block-column that ids outside the
+// window read.  With two stages the next item's windows are copied while
+// this item is contracted; with one (when two do not fit), after it.  A
+// sweep loads a block-row pair's blocks once and contracts them with the
+// pass's columns G at a time (G partial sets in registers).
+template <typename T, int G, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+spmv_bsr_window8_kernel(const T* __restrict__ blocks, const int* __restrict__ wcols,
+                        const int* __restrict__ tile_base, const T* __restrict__ x,
+                        T* __restrict__ y, long long n_brow, int L, long long n_rows,
+                        long long n_cols, int nb, int tile_brows, int Wt, int per_pass,
+                        int stages, long long n_tiles, int vec) {
+    constexpr int kW = THREADS / 32;
+    constexpr int kU = 4;                   // blocks of a row requested together
+    extern __shared__ __align__(16) unsigned char smem[];
+    unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
+    T* stage_mem = reinterpret_cast<T*>(smem + kBarBytes);
+    const int W = Wt * 8;
+    const int CW = W + 8;                   // a staged column: window + zeros
+    const int stage_elems = per_pass * CW;
+    const int passes = (nb + per_pass - 1) / per_pass;
+    const long long items = n_tiles * passes;
+    const long long first = static_cast<long long>(blockIdx.x) * items / gridDim.x;
+    const long long last = static_cast<long long>(blockIdx.x + 1) * items / gridDim.x;
+    // Window base clamped so the window stays inside max(n_bcol, Wt)
+    // block-columns (spmv_bsr.py:224).
+    const long long n_bcol = max((n_cols + 7) / 8, static_cast<long long>(Wt));
+    auto base_of = [&](long long tile) {
+        return min(max(static_cast<long long>(tile_base[tile]), 0LL), n_bcol - Wt);
+    };
+    if (threadIdx.x == 0) {
+        mbar_init(bar);
+        mbar_init(bar + 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    for (int i = threadIdx.x; i < stages * per_pass * 8; i += THREADS)
+        stage_mem[(i >> 3) * CW + W + (i & 7)] = T(0);
+    __syncthreads();
+
+    // Start copying item `item`'s windows (its columns' x[x0 : x0 + W],
+    // zero past n_cols) into stage s.
+    auto stage = [&](long long item, int s) {
+        const long long tile = item / passes;
+        const int j0 = static_cast<int>(item - tile * passes) * per_pass;
+        const int cnt = min(per_pass, nb - j0);
+        const long long x0 = base_of(tile) * 8;
+        const int valid = static_cast<int>(
+            max(0LL, min(static_cast<long long>(W), n_cols - x0)));
+        T* dst = stage_mem + s * stage_elems;
+        const T* src = x + static_cast<long long>(j0) * n_cols + x0;
+        if (vec) {
+            if (threadIdx.x == 0) {
+                // The stage was last read through the generic proxy.
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+                mbar_expect_tx(bar + s, static_cast<unsigned>(cnt * valid * sizeof(T)));
+                if (valid > 0)
+                    for (int j = 0; j < cnt; ++j)
+                        bulk_copy(dst + j * CW, src + j * n_cols,
+                                  static_cast<unsigned>(valid * sizeof(T)), bar + s);
+            }
+            for (int j = 0; j < cnt; ++j)
+                for (int w = valid + threadIdx.x; w < W; w += THREADS) dst[j * CW + w] = T(0);
+        } else {
+            for (int j = 0; j < cnt; ++j)
+                for (int w = threadIdx.x; w < W; w += THREADS) {
+                    if (w < valid)
+                        cp_async_small<sizeof(T)>(dst + j * CW + w, src + j * n_cols + w);
+                    else
+                        dst[j * CW + w] = T(0);
+                }
+        }
+    };
+
+    // Lane (h, rq, q): block-row h of the warp's pair, rows rq and rq + 4 of
+    // its blocks, block columns q and q + 4 (element e0 and e0 + 4, e0 + 32,
+    // e0 + 36 of a block).
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int h = lane >> 4, q = lane & 3, rq = (lane & 15) >> 2;
+    const int e0 = rq * 8 + q;
+    if (first < last) stage(first, 0);
+    cp_async_commit();
+    for (long long it = first; it < last; ++it) {
+        const int k = static_cast<int>(it - first);
+        const int s = stages == 2 ? k & 1 : 0;
+        if (stages == 2) {
+            if (it + 1 < last) stage(it + 1, s ^ 1);
+            cp_async_commit();
+            cp_async_wait_prev();               // this thread's copies of `it` landed
+        } else {
+            cp_async_wait_all();
+        }
+        const long long tile = it / passes;
+        const int j0 = static_cast<int>(it - tile * passes) * per_pass;
+        const int cnt = min(per_pass, nb - j0);
+        const long long base = base_of(tile);
+        const T* xs = stage_mem + s * stage_elems + q;
+        T* yj = y + static_cast<long long>(j0) * n_rows;
+        const long long row_end = min((tile + 1) * tile_brows, n_brow);
+        T bv[kU][4];
+        int off[kU];
+        // Request slots [l0, l0 + kU) of block-row brow: every block in
+        // flight before the first FMA.
+        auto load = [&](long long brow, bool live, int l0) {
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+                const bool ok = live && l0 + u < L;
+                const long long slot = brow * L + l0 + u;
+                const long long w = ok ? __ldcs(wcols + slot) - base : -1;
+                off[u] = (w >= 0 && w < Wt) ? static_cast<int>(w) * 8 : W;
+                const T* blk = blocks + slot * 64 + e0;
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    bv[u][e] = ok ? __ldcs(blk + (e & 1) * 4 + (e >> 1) * 32) : T(0);
+            }
+        };
+        if (vec) mbar_wait(bar + s, (stages == 2 ? k >> 1 : k) & 1);   // the bulk copies
+        __syncthreads();                        // and everyone else's
+        for (long long b0 = tile * tile_brows + 2 * warp; b0 < row_end; b0 += 2 * kW) {
+            const long long brow = b0 + h;
+            const bool live = brow < row_end;   // per half-warp: no early exit
+            // FMAs of the loaded slots with columns [g0, g0 + G), slots in
+            // ascending order.
+            auto contract = [&](int l0, int g0, T (&p)[G][4]) {
+#pragma unroll
+                for (int u = 0; u < kU; ++u) {
+                    if (l0 + u >= L) break;     // the same in the whole warp
+#pragma unroll
+                    for (int j = 0; j < G; ++j) {
+                        if (g0 + j < cnt) {
+                            const T* xj = xs + (g0 + j) * CW + off[u];
+                            const T x_q = xj[0], x_q4 = xj[4];
+                            p[j][0] = fma_rn(bv[u][0], x_q, p[j][0]);
+                            p[j][1] = fma_rn(bv[u][1], x_q4, p[j][1]);
+                            p[j][2] = fma_rn(bv[u][2], x_q, p[j][2]);
+                            p[j][3] = fma_rn(bv[u][3], x_q4, p[j][3]);
+                        }
+                    }
+                }
+            };
+            if (L <= kU) load(brow, live, 0);   // once for every group
+            for (int g0 = 0; g0 < cnt; g0 += G) {
+                T p[G][4];
+#pragma unroll
+                for (int j = 0; j < G; ++j)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) p[j][e] = T(0);
+                if (L <= kU) {
+                    contract(0, g0, p);
+                } else {
+                    for (int l0 = 0; l0 < L; l0 += kU) {
+                        load(brow, live, l0);
+                        contract(l0, g0, p);
+                    }
+                }
+                reduce_write<T, G>(p, q, rq, brow, live, cnt - g0, yj + g0 * n_rows, n_rows);
+            }
+        }
+        __syncthreads();                        // the stage is read out before it is refilled
+        if (stages == 1 && it + 1 < last) {
+            stage(it + 1, 0);
+            cp_async_commit();
+        }
+    }
+}
+
+int sm_count() {
+    static int n = -1;
+    if (n < 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess
+            || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+            n = -1;
+    }
+    return n;
+}
+
+// Stages: two when two stages of per_pass columns fit (the next item's
+// copy overlaps this item), else one.  Threads: a one-column pass runs 8
+// warps (several blocks share an SM); more columns take 16 warps, since
+// their stages fill most of an SM.  Both are fixed rules on the shapes.
+template <typename T, int G, int THREADS, int MIN_BLOCKS>
+int launch_window8_n(const T* blocks, const int* wcols, const int* tile_base,
+                     const T* x, T* y, long long n_brow, int L, long long n_rows,
+                     long long n_cols, int nb, int tile_brows, int Wt, int per_pass,
+                     cudaStream_t s) {
+    auto kernel = spmv_bsr_window8_kernel<T, G, THREADS, MIN_BLOCKS>;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    const size_t stage = static_cast<size_t>(per_pass) * (Wt + 1) * 8 * sizeof(T);
+    const int stages = kBarBytes + 2 * stage <= kMaxSmem ? 2 : 1;
+    const size_t smem = kBarBytes + stages * stage;
+    // Blocks that fit an SM, per instantiation and started KB of shared
+    // memory, taken at the rounded-up size: a fixed rule on the shapes.
+    static int per_sm[kMaxSmem / 1024 + 1] = {};
+    const int kb = static_cast<int>((smem + 1023) / 1024);
+    if (per_sm[kb] == 0) {
+        const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm[kb], kernel, THREADS, static_cast<size_t>(kb) * 1024);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (per_sm[kb] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    const int n_sm = sm_count();
+    if (n_sm < 1) return static_cast<int>(cudaErrorInvalidDevice);
+    const long long n_tiles = (n_brow + tile_brows - 1) / tile_brows;
+    const long long items = n_tiles * ((nb + per_pass - 1) / per_pass);
+    const unsigned grid = static_cast<unsigned>(
+        std::min(items, static_cast<long long>(per_sm[kb]) * n_sm));
+    // Bulk copies need 16-byte aligned windows: every column's start (the
+    // pointer and the column stride) and x0 (a multiple of 8 values).
+    const int vec = reinterpret_cast<size_t>(x) % 16 == 0
+                    && (n_cols * static_cast<long long>(sizeof(T))) % 16 == 0;
+    kernel<<<grid, THREADS, smem, s>>>(blocks, wcols, tile_base, x, y, n_brow, L, n_rows,
+                                       n_cols, nb, tile_brows, Wt, per_pass, stages,
+                                       n_tiles, vec);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_window8(const T* blocks, const int* wcols, const int* tile_base, const T* x,
+                   T* y, long long n_brow, int L, long long n_rows, long long n_cols,
+                   int nb, int tile_brows, int Wt, int per_pass, cudaStream_t s) {
+    if (per_pass == 1)
+        return launch_window8_n<T, 1, 256, 3>(blocks, wcols, tile_base, x, y, n_brow, L,
+                                              n_rows, n_cols, nb, tile_brows, Wt, 1, s);
+    return launch_window8_n<T, 4, 512, 1>(blocks, wcols, tile_base, x, y, n_brow, L, n_rows,
+                                          n_cols, nb, tile_brows, Wt, per_pass, s);
+}
+
 bool valid_block(int r, int c) {
     return r >= 1 && c >= 1 && c <= 32 && (c & (c - 1)) == 0 && r * c <= 256;
 }
@@ -248,12 +623,21 @@ int launch_window(const T* blocks, const int* wcols, const int* tile_base,
                   const T* x, T* y, long long n_brow, int L, int r, int c,
                   long long n_rows, long long n_cols, int nb, int tile_brows,
                   int Wt, int per_pass, void* stream) {
+    // 8 x 8 blocks take the staged kernel (one or two stages of per_pass
+    // windows, each with a zero block-column), every other shape the first
+    // window kernel (one stage of per_pass windows).
+    const bool eight = r == 8 && c == 8;
+    const long long smem = eight
+        ? static_cast<long long>(per_pass) * (Wt + 1) * c * sizeof(T) + kBarBytes
+        : static_cast<long long>(per_pass) * Wt * c * sizeof(T);
     if (n_brow < 0 || L < 1 || nb < 1 || !valid_block(r, c) || tile_brows < 1
-        || Wt < 1 || per_pass < 1 || per_pass > kCols
-        || static_cast<long long>(per_pass) * Wt * c * sizeof(T) > kMaxSmem)
+        || Wt < 1 || per_pass < 1 || per_pass > kCols || smem > kMaxSmem)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n_brow == 0 || n_rows == 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
+    if (eight)
+        return launch_window8<T>(blocks, wcols, tile_base, x, y, n_brow, L, n_rows, n_cols,
+                                 nb, tile_brows, Wt, per_pass, s);
     switch (k_of(r, c)) {
         case 1: return launch_window_k<T, 1>(blocks, wcols, tile_base, x, y, n_brow, L, r, c, n_rows, n_cols, nb, tile_brows, Wt, per_pass, s);
         case 2: return launch_window_k<T, 2>(blocks, wcols, tile_base, x, y, n_brow, L, r, c, n_rows, n_cols, nb, tile_brows, Wt, per_pass, s);

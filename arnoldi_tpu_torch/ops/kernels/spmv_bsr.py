@@ -8,7 +8,11 @@ Counterpart of ``arnoldi_tpu/ops/pallas/spmv_bsr.py``, both of its kernels:
 * the window kernel (``bsr_matvec_pallas16`` with ``pack_bsr16``):
   :func:`bsr_window_matvec` and :func:`bsr_window_matmat` let each tile of
   block-rows read x only from a window of block-columns, staged in shared
-  memory.  :func:`pack_bsr_window` computes the windows on the host.
+  memory.  :func:`pack_bsr_window` computes the windows on the host;
+  :func:`window_cols_per_pass`, :func:`window_stages` and
+  :func:`window_items` are the launch's plan (the columns a pass stages,
+  whether the next item's copy overlaps this one, and the run of (tile,
+  pass) items each thread block of the persistent grid walks).
 
 On CUDA tensors the wrappers launch ``csrc/spmv_bsr.cu``; on CPU tensors
 they run :func:`bsr_matvec_plain` and :func:`bsr_window_matvec_plain`.  The
@@ -28,13 +32,15 @@ from . import _build
 WINDOW_TILE_BROWS = 128
 #: A BsrOperator takes the window kernel when one column's window, Wt
 #: block-columns of c values, fits this many bytes; a wider window takes the
-#: gather kernel.  At 64 KB at least three columns fit one thread block.
+#: gather kernel.  At 64 KB three columns fit one thread block.
 WINDOW_BUDGET_BYTES = 64 * 1024
 #: Dynamic shared memory one thread block may use on sm_90 (227 KB).
 MAX_SHARED_BYTES = 232448
 #: Columns a warp keeps in registers in the b-column forms (kCols in the
 #: CUDA source); the window kernel stages at most this many per pass.
 MAX_COLS_PER_PASS = 8
+#: Shared memory the window kernel keeps beside its stages (two mbarriers).
+_BARRIER_BYTES = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +110,52 @@ def bsr_window(blocks, block_cols, *, device, tile_brows=WINDOW_TILE_BROWS):
                      torch.from_numpy(tile_base).to(device), Wt, tile_brows)
 
 
+def window_cols_per_pass(nb, col_bytes):
+    """Columns the window kernel stages a pass, for ``nb`` columns that
+    take ``col_bytes`` each in a stage (the window and one zero
+    block-column): as many as one stage fits in :data:`MAX_SHARED_BYTES`,
+    at most :data:`MAX_COLS_PER_PASS`, so that each block is read once for
+    as many columns as can be; 0 when not even one column fits."""
+    return min(nb, MAX_COLS_PER_PASS,
+               (MAX_SHARED_BYTES - _BARRIER_BYTES) // col_bytes)
+
+
+def window_stages(per_pass, col_bytes):
+    """Stages of the window kernel's 8 x 8 path: 2 (the next item's
+    windows copied while this item is contracted) when two stages of
+    ``per_pass`` columns fit, else 1."""
+    fits = _BARRIER_BYTES + 2 * per_pass * col_bytes <= MAX_SHARED_BYTES
+    return 2 if fits else 1
+
+
+def window_items(n_tiles, nb, per_pass, n_blocks):
+    """The window kernel's plan: for each of ``n_blocks`` thread blocks of
+    the persistent grid, the list of ``(tile, first column, columns)`` it
+    stages and contracts, in order.  Item i is tile ``i // passes``, pass
+    ``i % passes``; block g takes items ``[g*n // G, (g+1)*n // G)``, so the
+    passes of a tile run back to back, mostly in one block (the arithmetic
+    of ``spmv_bsr_window8_kernel``)."""
+    passes = -(-nb // per_pass)
+    n = n_tiles * passes
+    plan = []
+    for g in range(n_blocks):
+        run = []
+        for i in range(g * n // n_blocks, (g + 1) * n // n_blocks):
+            tile, p = divmod(i, passes)
+            j0 = p * per_pass
+            run.append((tile, j0, min(per_pass, nb - j0)))
+        plan.append(run)
+    return plan
+
+
+def window_bases(window, n_cols, c):
+    """Each tile's staged window base in block-columns, clamped so the
+    window stays inside ``max(n_bcol, Wt)`` block-columns (the kernel's and
+    the JAX package's clamp)."""
+    n_bcol = max(-(-n_cols // c), window.width)
+    return window.tile_base.long().clamp(0, n_bcol - window.width)
+
+
 def _x_blocks(x, c):
     """x (..., n_cols) zero-padded to whole block-columns, as (..., n_bcol, c)."""
     n_cols = x.shape[-1]
@@ -133,8 +185,7 @@ def bsr_window_matvec_plain(blocks, window, x, n_rows):
     outside the window reads zero."""
     c = blocks.shape[3]
     xb = _x_blocks(x, c)
-    n_bcol = max(xb.shape[-2], window.width)
-    base = window.tile_base.long().clamp(0, n_bcol - window.width)
+    base = window_bases(window, x.shape[-1], c)
     cols = window.cols.long()
     tile = torch.arange(cols.shape[0], device=cols.device) // window.tile_brows
     rel = cols - base[tile][:, None]
@@ -195,12 +246,12 @@ def _windowed(kernel, wrapper, blocks, window, x, n_rows):
             or window.tile_base.device != blocks.device:
         raise ValueError(f"{kernel}: tile_base must be ({tiles},) int32 on the "
                          "operands' device")
-    col_bytes = window.width * c * blocks.dtype.itemsize
-    if col_bytes > MAX_SHARED_BYTES:
-        raise ValueError(f"{kernel}: a window of {col_bytes} bytes exceeds "
-                         f"{MAX_SHARED_BYTES} bytes of shared memory")
     nb = x.shape[0] if x.ndim == 2 else 1
-    per_pass = min(nb, MAX_COLS_PER_PASS, MAX_SHARED_BYTES // col_bytes)
+    col_bytes = (window.width + 1) * c * blocks.dtype.itemsize
+    per_pass = window_cols_per_pass(nb, col_bytes)
+    if per_pass < 1:
+        raise ValueError(f"{kernel}: a window of {col_bytes} bytes a column does "
+                         f"not fit {MAX_SHARED_BYTES} bytes of shared memory")
     y = _out(blocks, x, n_rows)
     fn = _build.kernel_fn("arn_spmv_bsr_window", blocks.dtype)
     guard, stream = _build.launch_context(blocks.device)
@@ -258,9 +309,9 @@ bsr_window_matvec.launches = 0
 
 def bsr_window_matmat(blocks, window, X, n_rows):
     """:func:`bsr_window_matvec` for b columns given as the rows of ``X``
-    (b, n_cols); returns (b, n_rows).  The window of up to
-    :data:`MAX_COLS_PER_PASS` columns is staged per pass, as many as fit
-    :data:`MAX_SHARED_BYTES`."""
+    (b, n_cols); returns (b, n_rows).  A pass stages the windows of
+    :func:`window_cols_per_pass` columns; every column gets the bits the
+    single-column kernel gives it."""
     _rows("spmv_bsr_window_cols", X)
     return _windowed("spmv_bsr_window_cols", bsr_window_matmat, blocks, window,
                      X, n_rows)

@@ -18,7 +18,11 @@ nonzero before the last line is printed):
    function (cuSPARSE through ``torch.sparse``, cuBLAS) as its yardstick;
    then ELL at edge shapes (row lengths 1-129 around the 32-slot rule, b =
    1, 3, 8, 11, a row count that is not a multiple of the tile, unaligned
-   views) and on the symmetrized matrix S (L = 129) with its times;
+   views) and on the symmetrized matrix S (L = 129) with its times; then
+   the BSR window kernel at edge shapes (b = 1, 3, 8, 11, 2^17 - 5 rows,
+   unaligned views and column strides, (8, 8) and (4, 4) blocks), every
+   column of its b-column form bit for bit against its single-column
+   form;
 2. solve A: ``partial_schur`` on ``laplace_2d(724)`` (n = 524,176, DIA
    kernel + fused CGS2), LM, k = 5, m = 80, float64, tol 1e-8, checked
    against the analytic spectrum;
@@ -355,6 +359,8 @@ def phase_kernels(mats):
     sync()
     phase_ell_edges(mats, rec, gen)
     sync()
+    phase_window_edges(rec, gen)
+    sync()
     # The share of the bound against the event time and the device time:
     # they differ where the host paces the launches.
     for name, r in rec.items():
@@ -575,6 +581,62 @@ def phase_ell_edges(mats, rec, gen):
                     "stored_bytes_TBps": stored / r.ms / 1e9}
     print(f"  ELL S: {json.dumps(out)}")
     del op, x, X
+
+
+WINDOW_EDGE_NB = (1, 3, 8, 11)   # 11: a pass of 8 columns and one of 3
+
+
+def phase_window_edges(rec, gen):
+    """Phase 1, window kernel edge shapes: a banded matrix of 2^17 - 5
+    rows (not a multiple of the 128-block-row tile, and a column stride
+    that is not 16-byte aligned: the 4/8-byte copy path for b > 1) as
+    BSR-8 and as BSR (4, 4) (the general window kernel), b in
+    WINDOW_EDGE_NB, float64 and float32, and x / X as views one element in
+    (unaligned pointer: the same copy path), each against the plain
+    version; every column of the b-column form bit for bit against the
+    single-column window kernel, and the 8 x 8 window kernel against the
+    gather kernel."""
+    import torch
+
+    from arnoldi_tpu_torch import as_operator, matrices
+    from arnoldi_tpu_torch.linop import cast_operator
+    from arnoldi_tpu_torch.ops.kernels import spmv_bsr
+
+    dev = torch.device("cuda")
+    n = 2**17 - 5
+    A = matrices.random_scattered(2**17, 24, seed=3, bandwidth=1024,
+                                  block=8)[:n, :n].tocsr()
+    for shape in ((8, 8), (4, 4)):
+        op64 = as_operator(A, format=("bsr", shape), device=dev)
+        if not op64.uses_window:
+            fail(f"window edges: the BSR {shape} operator should take the window kernel")
+        for dtype in (torch.float64, torch.float32):
+            op = cast_operator(op64, dtype)
+            blk, ids, win, nr = op.blocks, op.block_cols, op.window, op.n_rows
+            label = f"BSR window edge {shape} ({n} rows, Wt={win.width})"
+            for nb in WINDOW_EDGE_NB:
+                for view in (False, True):
+                    buf = torch.randn(nb * n + view, generator=gen, device=dev,
+                                      dtype=dtype)
+                    X = buf[int(view):].view(nb, n)
+                    tag = f"{label} b={nb}{', view one in' if view else ''}"
+                    if nb == 1:
+                        rec["spmv_bsr_window"].check(
+                            tag, dtype, spmv_bsr.bsr_window_matvec(blk, win, X[0], nr),
+                            spmv_bsr.bsr_window_matvec_plain(blk, win, X[0], nr))
+                        continue
+                    Y = spmv_bsr.bsr_window_matmat(blk, win, X, nr)
+                    rec["spmv_bsr_window_cols"].check(
+                        tag, dtype, Y, spmv_bsr.bsr_window_matvec_plain(blk, win, X, nr))
+                    for j in range(nb):
+                        if not torch.equal(Y[j], spmv_bsr.bsr_window_matvec(
+                                blk, win, X[j].contiguous(), nr)):
+                            fail(f"{tag}: column {j} differs from the single-column "
+                                 "window kernel")
+                    if shape == (8, 8) and not torch.equal(
+                            Y, spmv_bsr.bsr_matmat(blk, ids, X, nr)):
+                        fail(f"{tag}: window and gather kernels differ")
+        del op64, op, blk, ids, win
 
 
 def bsr_yardsticks(rec, names, A, op, x, X):

@@ -217,3 +217,67 @@ def test_bsr_wrappers_reject_bad_operands():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         spmv_bsr.bsr_matvec(op.blocks.to("meta"), op.block_cols.to("meta"),
                             x.to("meta"), op.n_rows)
+
+
+def _window_case(case):
+    A = {"mark60": lambda: mark(60), "mark20": lambda: mark(20),
+         "scattered": lambda: random_scattered(4096, 24, seed=1, bandwidth=256,
+                                               block=8)}[case]()
+    return BsrOperator.from_scipy(A, device="cpu")
+
+
+@pytest.mark.parametrize("nb,n_blocks", [(1, 7), (3, 2), (8, 5), (11, 64)])
+@pytest.mark.parametrize("case", ["mark60", "mark20", "scattered"])
+def test_window_plan_stages_every_id(case, nb, n_blocks):
+    # The window kernel's plan: each (tile, column) is staged and
+    # contracted once, each thread block walks a contiguous run of items
+    # with the passes of a tile back to back, and the window a tile stages
+    # (its clamped base, Wt block-columns) holds every id of the tile.
+    op = _window_case(case)
+    win, c = op.window, op.blockshape[1]
+    per_pass = spmv_bsr.window_cols_per_pass(nb, (win.width + 1) * c * 8)
+    assert 1 <= per_pass <= min(nb, spmv_bsr.MAX_COLS_PER_PASS)
+    n_tiles = win.tile_base.shape[0]
+    passes = -(-nb // per_pass)
+    n_blocks = min(n_blocks, n_tiles * passes)     # the grid never exceeds the items
+    plan = spmv_bsr.window_items(n_tiles, nb, per_pass, n_blocks)
+    assert len(plan) == n_blocks and all(plan)
+    flat = [item for run in plan for item in run]
+    want = [(t, p * per_pass, min(per_pass, nb - p * per_pass))
+            for t in range(n_tiles) for p in range(passes)]
+    assert flat == want
+    staged = [(t, j) for t, j0, cnt in flat for j in range(j0, j0 + cnt)]
+    assert sorted(staged) == [(t, j) for t in range(n_tiles) for j in range(nb)]
+    base = spmv_bsr.window_bases(win, op.n_cols, c).numpy()
+    tiles = np.arange(win.cols.shape[0]) // win.tile_brows
+    rel = win.cols.numpy() - base[tiles][:, None]
+    assert rel.min() >= 0 and rel.max() < win.width
+    assert base.min() >= 0 and base.max() + win.width <= max(-(-op.n_cols // c),
+                                                              win.width)
+
+
+@pytest.mark.parametrize("dtype,nb,per_pass,stages", [
+    (torch.float64, 1, 1, 2),     # solve H: the next window copied meanwhile
+    (torch.float64, 4, 4, 2),
+    (torch.float64, 8, 8, 1),     # solve D: every column in one pass
+    (torch.float64, 11, 8, 1),
+    (torch.float32, 8, 8, 2)])
+def test_window_passes_and_stages_at_banded_1024(dtype, nb, per_pass, stages):
+    # banded-1024 as BSR-8 has a window of 384 block-columns
+    col_bytes = (384 + 1) * 8 * dtype.itemsize
+    assert spmv_bsr.window_cols_per_pass(nb, col_bytes) == per_pass
+    assert spmv_bsr.window_stages(per_pass, col_bytes) == stages
+    assert 16 + stages * per_pass * col_bytes <= spmv_bsr.MAX_SHARED_BYTES
+
+
+def test_window_passes_at_the_budget():
+    # the widest window the routing sends to the window kernel (64 KB a
+    # float64 column) still stages three columns a pass in one stage, or
+    # one column in two; a window wider than shared memory stages none,
+    # and the wrapper refuses it
+    col_bytes = (spmv_bsr.WINDOW_BUDGET_BYTES // 64 + 1) * 64
+    per_pass = spmv_bsr.window_cols_per_pass(8, col_bytes)
+    assert per_pass == 3
+    assert spmv_bsr.window_stages(per_pass, col_bytes) == 1
+    assert spmv_bsr.window_stages(1, col_bytes) == 2
+    assert spmv_bsr.window_cols_per_pass(8, spmv_bsr.MAX_SHARED_BYTES) == 0
