@@ -32,4 +32,17 @@ __device__ __forceinline__ T block_sum(T v) {
     return v;
 }
 
+// The current device's SM count (read once; -1 if it cannot be read), for
+// the persistent grids.
+inline int sm_count() {
+    static int n = -1;
+    if (n < 0) {
+        int dev = 0;
+        if (cudaGetDevice(&dev) != cudaSuccess
+            || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+            n = -1;
+    }
+    return n;
+}
+
 }  // namespace arn

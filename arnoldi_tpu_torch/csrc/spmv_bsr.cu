@@ -5,7 +5,8 @@
 //
 // Two kernels:
 //  * spmv_bsr_kernel (gather) replaces arnoldi_tpu/ops/pallas/spmv_bsr.py,
-//    bsr_matvec_pallas: x is read straight from device memory.
+//    bsr_matvec_pallas: x is read straight from device memory.  Its
+//    b-column form on 8 x 8 blocks (b >= 2) is spmv_bsr_gather8_kernel.
 //  * the window kernel replaces bsr_matvec_pallas16 (with its host packing
 //    pack_bsr16): a tile of block-rows reads x only from the window
 //    [tile_base, tile_base + Wt) block-columns, staged in shared memory.
@@ -90,6 +91,29 @@
 // shuffle-down over its 8 lanes builds.  So the window kernel gives the
 // gather kernel's bits, and every column of a pass the single-column bits.
 // Other block shapes keep the first window kernel (spmv_bsr_window_kernel).
+//
+// spmv_bsr_gather8_kernel (8 x 8 blocks, b >= 2 columns) is the b-column
+// gather kernel rebuilt on that layout.  What held the first one (the b
+// columns in spmv_bsr_kernel: 0.608 ms at b = 8 on the scattered 2^20-row
+// matrix, 17 % of its bound, behind cuSPARSE's BSR SpMM at 0.565 ms) and
+// what this design does about each:
+//  * one block in flight a warp (a loop of dynamic trip count, each block's
+//    loads behind a shuffle of its id): now 4 blocks of each of two
+//    block-rows, with the next step's ids loaded ahead, evict-first;
+//  * x requested as often as the blocks: each lane loaded 8 scalar x values
+//    a block, every address 4 times a warp.  Now a half-warp copies each
+//    64-byte x segment once (16-byte cp.async when X's pointer and row
+//    stride allow, else value by value) into its shared slice;
+//  * 16,384 thread blocks: now a persistent grid whose warps walk the
+//    block-row pairs grid-stride, so the rows in flight, and the band of X
+//    they read, stay compact in L2.  Contiguous runs of pairs a block lost
+//    (0.208 against 0.157 ms: 264 bands of X live at once);
+//  * scattered scalar y stores: reduce_write, as above.
+// One pass covers up to kCols columns (more re-read the blocks), with the
+// window kernel's sum tree, so every column equals spmv_bsr's bits and the
+// window kernel's.  At b = 8 in f64: 0.148 ms on an NVIDIA H100 80GB HBM3,
+// 700.00 W (scripts/bsr_ab.py --matrix scattered), 512 threads (16 bytes of
+// spill; 384 threads, without spill, took 0.163).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -481,15 +505,164 @@ spmv_bsr_window8_kernel(const T* __restrict__ blocks, const int* __restrict__ wc
     }
 }
 
-int sm_count() {
-    static int n = -1;
-    if (n < 0) {
-        int dev = 0;
-        if (cudaGetDevice(&dev) != cudaSuccess
-            || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-            n = -1;
+// ---- The 8 x 8 b-column gather kernel -----------------------------------
+
+// N bytes from src into shared memory, or N zero bytes (src not read) when
+// !ok.  16-byte copies bypass L1 (x is not reused within an SM).
+template <int N>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, bool ok) {
+    if constexpr (N == 16)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                     :: "r"(smem_addr(dst)), "l"(src), "r"(ok ? 16 : 0) : "memory");
+    else
+        asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
+                     :: "r"(smem_addr(dst)), "l"(src), "n"(N), "r"(ok ? N : 0)
+                     : "memory");
+}
+
+// Warp w of the persistent grid's NW warps takes the block-row pairs w,
+// w + NW, w + 2 NW, ... (ops/kernels/spmv_bsr.py, gather8_steps, is the same
+// walk on the host), so the rows in flight form one compact range and the
+// band of X they read stays in L2.  A pair's steps are (pass, chunk of kU
+// slots) in order; pass p covers columns [p G, min(nb, (p + 1) G)).  A step
+// copies the x segments of its blocks (kU slots of each block-row, cnt
+// columns, 64 B each in f64) into the half-warp's slice of shared memory
+// with cp.async, loads the blocks into registers (evict first), loads the
+// next step's ids, and contracts once both have landed; the last chunk of
+// a pass finishes its rows with reduce_write.
+template <typename T, int G, int THREADS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+spmv_bsr_gather8_kernel(const T* __restrict__ blocks, const int* __restrict__ cols,
+                        const T* __restrict__ x, T* __restrict__ y, long long n_brow,
+                        int L, long long n_rows, long long n_cols, int nb, int vec) {
+    constexpr int kW = THREADS / 32;
+    constexpr int kU = 4;                   // slots of a block-row a step
+    constexpr int kV = 16 / sizeof(T);      // values of one 16-byte copy
+    constexpr int kPad = 32 / sizeof(T);    // puts the half-warps on other banks
+    constexpr int kSlice = kU * G * 8 + kPad;
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int h = lane >> 4, hl = lane & 15, q = lane & 3, rq = hl >> 2;
+    const int e0 = rq * 8 + q;
+    T* xs = reinterpret_cast<T*>(smem) + (warp * 2 + h) * kSlice;
+    const long long nw = static_cast<long long>(gridDim.x) * kW;
+    const long long n_pairs = (n_brow + 1) / 2;
+    const int chunks = (L + kU - 1) / kU;
+    const int per_pair = ((nb + G - 1) / G) * chunks;
+
+    // Step r of pair `pair`: its half-warp's block-row, first column and
+    // first slot.
+    auto where = [&](long long pair, int r, long long& brow, int& j0, int& l0) {
+        const int pass = r / chunks;
+        j0 = pass * G;
+        l0 = (r - pass * chunks) * kU;
+        brow = 2 * pair + h;
+    };
+    auto load_ids = [&](long long pair, int r, int (&id)[kU]) {
+        long long brow;
+        int j0, l0;
+        where(pair, r, brow, j0, l0);
+        const bool live = pair < n_pairs && brow < n_brow;
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+            id[u] = live && l0 + u < L ? __ldcs(cols + brow * L + l0 + u) : -1;
+    };
+
+    int id[kU], nid[kU];
+    T p[G][4];
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) p[j][e] = T(0);
+    long long pair = static_cast<long long>(blockIdx.x) * kW + warp;
+    int r = 0;
+    load_ids(pair, 0, id);
+    while (pair < n_pairs) {
+        long long brow;
+        int j0, l0;
+        where(pair, r, brow, j0, l0);
+        long long pair_next = pair;
+        int r_next = r + 1;
+        if (r_next == per_pair) {
+            r_next = 0;
+            pair_next += nw;
+        }
+        const bool live = brow < n_brow;
+        const int cnt = min(G, nb - j0);
+        const T* xj0 = x + static_cast<long long>(j0) * n_cols;
+        // x segment (u, j) -> xs[(u * G + j) * 8 ...]; an id outside
+        // [0, n_bcol) or values past n_cols read zero.  Slots past L, columns
+        // past cnt and the rows of a dead half-warp are not copied (and never
+        // reach y).
+        if (vec) {
+            constexpr int kC = 8 / kV, kItems = kU * G * kC;
+#pragma unroll
+            for (int s = 0; s < kItems / 16; ++s) {
+                const int i = hl + 16 * s;
+                const int u = i / (G * kC), j = (i / kC) % G, c = i % kC;
+                if (live && l0 + u < L && j < cnt) {
+                    const long long g = static_cast<long long>(id[u]) * 8 + c * kV;
+                    const bool ok = id[u] >= 0 && g < n_cols;
+                    cp_async_zfill<16>(xs + (u * G + j) * 8 + c * kV,
+                                       ok ? xj0 + j * n_cols + g : x, ok);
+                }
+            }
+        } else {
+            constexpr int kItems = kU * G * 8;
+#pragma unroll
+            for (int s = 0; s < kItems / 16; ++s) {
+                const int i = hl + 16 * s;
+                const int u = i / (G * 8), j = (i / 8) % G, e = i % 8;
+                if (live && l0 + u < L && j < cnt) {
+                    const long long g = static_cast<long long>(id[u]) * 8 + e;
+                    const bool ok = id[u] >= 0 && g < n_cols;
+                    cp_async_zfill<sizeof(T)>(xs + (u * G + j) * 8 + e,
+                                              ok ? xj0 + j * n_cols + g : x, ok);
+                }
+            }
+        }
+        cp_async_commit();
+        T bv[kU][4];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+            const bool ok = live && l0 + u < L;
+            const T* blk = blocks + (brow * L + l0 + u) * 64 + e0;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                bv[u][e] = ok ? __ldcs(blk + (e & 1) * 4 + (e >> 1) * 32) : T(0);
+        }
+        load_ids(pair_next, r_next, nid);
+        cp_async_wait_all();
+        __syncwarp();
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+            if (l0 + u >= L) break;             // the same in the whole warp
+#pragma unroll
+            for (int j = 0; j < G; ++j) {
+                if (j < cnt) {
+                    const T* xu = xs + (u * G + j) * 8 + q;
+                    const T x_q = xu[0], x_q4 = xu[4];
+                    p[j][0] = fma_rn(bv[u][0], x_q, p[j][0]);
+                    p[j][1] = fma_rn(bv[u][1], x_q4, p[j][1]);
+                    p[j][2] = fma_rn(bv[u][2], x_q, p[j][2]);
+                    p[j][3] = fma_rn(bv[u][3], x_q4, p[j][3]);
+                }
+            }
+        }
+        __syncwarp();                           // the slice is read out before it is refilled
+        if (l0 + kU >= L) {                     // the pass's last chunk
+            reduce_write<T, G>(p, q, rq, brow, live, cnt,
+                               y + static_cast<long long>(j0) * n_rows, n_rows);
+#pragma unroll
+            for (int j = 0; j < G; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) p[j][e] = T(0);
+        }
+#pragma unroll
+        for (int u = 0; u < kU; ++u) id[u] = nid[u];
+        pair = pair_next;
+        r = r_next;
     }
-    return n;
 }
 
 // Stages: two when two stages of per_pass columns fit (the next item's
@@ -518,7 +691,7 @@ int launch_window8_n(const T* blocks, const int* wcols, const int* tile_base,
         if (err != cudaSuccess) return static_cast<int>(err);
         if (per_sm[kb] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     }
-    const int n_sm = sm_count();
+    const int n_sm = arn::sm_count();
     if (n_sm < 1) return static_cast<int>(cudaErrorInvalidDevice);
     const long long n_tiles = (n_brow + tile_brows - 1) / tile_brows;
     const long long items = n_tiles * ((nb + per_pass - 1) / per_pass);
@@ -554,6 +727,37 @@ int k_of(int r, int c) {
     return e <= 32 ? 1 : e <= 64 ? 2 : e <= 128 ? 4 : 8;
 }
 
+// The 8 x 8 gather kernel's launch: a persistent grid of the blocks that fit
+// an SM (cached per instantiation) times the SMs, at most one warp a pair.
+// 16-byte copies need X's pointer and row stride 16-byte aligned (block
+// columns start at multiples of 8 values); other views copy value by value.
+template <typename T, int G, int THREADS, int MIN_BLOCKS>
+int launch_gather8_n(const T* blocks, const int* cols, const T* x, T* y, long long n_brow,
+                     int L, long long n_rows, long long n_cols, int nb, cudaStream_t s) {
+    auto kernel = spmv_bsr_gather8_kernel<T, G, THREADS, MIN_BLOCKS>;
+    constexpr int kW = THREADS / 32;
+    constexpr size_t smem = kW * 2 * (4 * G * 8 + 32 / sizeof(T)) * sizeof(T);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    static int per_sm = 0;
+    if (per_sm == 0) {
+        const cudaError_t err =
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    const int n_sm = arn::sm_count();
+    if (n_sm < 1) return static_cast<int>(cudaErrorInvalidDevice);
+    const long long n_pairs = (n_brow + 1) / 2;
+    const unsigned grid = static_cast<unsigned>(
+        std::min((n_pairs + kW - 1) / kW, static_cast<long long>(per_sm) * n_sm));
+    const int vec = reinterpret_cast<size_t>(x) % 16 == 0
+                    && (n_cols * static_cast<long long>(sizeof(T))) % 16 == 0;
+    kernel<<<grid, THREADS, smem, s>>>(blocks, cols, x, y, n_brow, L, n_rows, n_cols, nb, vec);
+    return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int K>
 int launch_gather_k(const T* blocks, const int* cols, const T* x, T* y,
                     long long n_brow, int L, int r, int c, long long n_rows,
@@ -578,6 +782,11 @@ int launch_gather(const T* blocks, const int* cols, const T* x, T* y,
         return static_cast<int>(cudaErrorInvalidValue);
     if (n_brow == 0 || n_rows == 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
+    // 8 x 8 blocks at b >= 2 take the staged gather kernel; every other
+    // shape, and every single column, the first gather kernel.
+    if (r == 8 && c == 8 && nb >= 2)
+        return launch_gather8_n<T, kCols, 512, 1>(blocks, cols, x, y, n_brow, L, n_rows,
+                                                  n_cols, nb, s);
     switch (k_of(r, c)) {
         case 1: return launch_gather_k<T, 1>(blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb, s);
         case 2: return launch_gather_k<T, 2>(blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb, s);

@@ -72,6 +72,8 @@
 
 #include <algorithm>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxShortL = 32;    // the staged path's longest row
@@ -289,17 +291,6 @@ spmv_ell_warp_kernel(const T* __restrict__ data, const int* __restrict__ cols,
     if ((lane & 3) == 0 && j < NB) y[j * n_rows + row] = s;
 }
 
-int sm_count() {
-    static int n = -1;
-    if (n < 0) {
-        int dev = 0;
-        if (cudaGetDevice(&dev) != cudaSuccess
-            || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-            n = -1;
-    }
-    return n;
-}
-
 template <typename T, int NB>
 int launch_tiles(const T* data, const int* cols, const T* x, T* y, long long n_rows,
                  long long n_cols, int L, cudaStream_t s) {
@@ -322,7 +313,7 @@ int launch_tiles(const T* data, const int* cols, const T* x, T* y, long long n_r
         if (err != cudaSuccess) return static_cast<int>(err);
         if (per_sm[L] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     }
-    const int n_sm = sm_count();
+    const int n_sm = arn::sm_count();
     if (n_sm < 1) return static_cast<int>(cudaErrorInvalidDevice);
     const long long n_tiles = (n_rows + R - 1) / R;
     const unsigned blocks = static_cast<unsigned>(

@@ -34,6 +34,27 @@ def numpy_dtype(dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+def is_inexact(dtype):
+    """True for a floating or complex torch or NumPy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return dtype.is_floating_point or dtype.is_complex
+    return np.issubdtype(np.dtype(dtype), np.inexact)
+
+
+def solver_dtype(dtype):
+    """The torch dtype a solve of an operator of ``dtype`` (torch or NumPy)
+    works in when none is asked for: a floating or complex dtype as it is,
+    any other real one (integers, bool) promoted to ``np.result_type(dtype,
+    np.float32)``, as the JAX package promotes it
+    (``arnoldi_tpu/solvers/krylov_schur.py:_solver_dtype`` on the real path,
+    ``lanczos.py:301-305``): int8/int16 to float32, int32/int64 to float64."""
+    if is_inexact(dtype):
+        return torch_dtype(dtype)
+    if isinstance(dtype, torch.dtype):
+        dtype = numpy_dtype(dtype)
+    return torch_dtype(np.result_type(dtype, np.float32))
+
+
 def check_matmul_precision(dtype, device):
     """Raise if a float32 solve on ``device`` could run its matmuls in TF32."""
     if torch.device(device).type != "cuda" or dtype != torch.float32:

@@ -42,6 +42,7 @@ KERNELS = {
 def reset_launch_counts():
     for wrapper, _, _ in KERNELS.values():
         wrapper.launches = 0
+    spmv_bsr.bsr_matmat.gather8_launches = 0
 
 
 def launch_counts():

@@ -46,8 +46,8 @@ _SIGNATURES = {
     # nb, tile_brows, Wt, columns per pass, stream
     "arn_spmv_bsr_window": [_p, _p, _p, _p, _p, _i64, _i32, _i32, _i32, _i64,
                             _i64, _i32, _i32, _i32, _i32, _p],
-    # Vt, w, c, partials, n, mp1, n_active, chunk, n_chunks, stream
-    "arn_masked_project": [_p, _p, _p, _p, _i64, _i32, _i32, _i32, _i32, _p],
+    # Vt, w, c, partials, ticket, n, mp1, n_active, chunk, n_chunks, stream
+    "arn_masked_project": [_p, _p, _p, _p, _p, _i64, _i32, _i32, _i32, _i32, _p],
     # Vt, w, c, w_out, partials, norm_sq, n, n_active, n_blocks, stream
     "arn_project_update_norm": [_p, _p, _p, _p, _p, _p, _i64, _i32, _i32, _p],
 }

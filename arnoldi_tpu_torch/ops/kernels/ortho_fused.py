@@ -20,8 +20,8 @@ import torch
 
 from . import _build
 
-#: Columns of ``Vt`` one block of the projection pass owns.  Its slice of
-#: ``w`` is staged in shared memory (8 KB in float64).
+#: Columns of ``Vt`` one group of 8 warps of the projection pass owns at a
+#: time.  Its slice of ``w`` is staged in shared memory (8 KB in float64).
 PROJECT_CHUNK = 1024
 
 
@@ -47,8 +47,26 @@ def _check_basis(kernel, Vt, w, n_active):
                          f"[0, {Vt.shape[0]}]")
 
 
+_TICKETS = {}
+
+
+def _ticket(device, stream):
+    """The two int32 counters of the projection kernel's grid barrier, one
+    pair per device and stream: zero between launches (the last block
+    resets them), and shared only by launches on one stream, which run in
+    order."""
+    key = (device, stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(2, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
 def masked_project(Vt, w, n_active):
-    """``c[r] = Vt[r] . w`` for ``r < n_active``, 0 after; shape (m+1,)."""
+    """``c[r] = Vt[r] . w`` for ``r < n_active``, 0 after; shape (m+1,).
+
+    One cooperative kernel launch: per-row partials over chunks of
+    :data:`PROJECT_CHUNK` columns, a grid-wide barrier, then each row's
+    partials summed in a fixed order (the bits of a two-launch split-K)."""
     n_active = int(n_active)
     cuda = _build.on_cuda("masked_project", Vt, w)
     _check_basis("masked_project", Vt, w, n_active)
@@ -57,13 +75,15 @@ def masked_project(Vt, w, n_active):
     mp1, n = Vt.shape
     n_chunks = -(-n // PROJECT_CHUNK)
     c = torch.empty(mp1, dtype=Vt.dtype, device=Vt.device)
-    partials = torch.empty(max(n_active, 1) * n_chunks, dtype=Vt.dtype,
-                           device=Vt.device)
     fn = _build.kernel_fn("arn_masked_project", Vt.dtype)
     guard, stream = _build.launch_context(Vt.device)
+    ticket = _ticket(Vt.device, stream)
+    partials = torch.empty(max(n_active, 1) * n_chunks, dtype=Vt.dtype,
+                           device=Vt.device)
     with guard:
         rc = fn(Vt.data_ptr(), w.data_ptr(), c.data_ptr(), partials.data_ptr(),
-                n, mp1, n_active, PROJECT_CHUNK, n_chunks, stream)
+                ticket.data_ptr(), n, mp1, n_active, PROJECT_CHUNK, n_chunks,
+                stream)
     _build.check(rc, "masked_project")
     masked_project.launches += 1
     return c

@@ -4,7 +4,10 @@ Counterpart of ``arnoldi_tpu/ops/pallas/spmv_bsr.py``, both of its kernels:
 
 * the gather kernel (``bsr_matvec_pallas``): :func:`bsr_matvec` (one
   column) and :func:`bsr_matmat` (b columns, the rows of a ``(b, n_cols)``
-  array) read x straight from device memory;
+  array) read x straight from device memory (L2); :func:`bsr_matmat` on
+  8 x 8 blocks takes a kernel of its own, which stages each block's x
+  segments in shared memory (:func:`uses_gather8` is the rule and
+  :func:`gather8_steps` its persistent grid's walk);
 * the window kernel (``bsr_matvec_pallas16`` with ``pack_bsr16``):
   :func:`bsr_window_matvec` and :func:`bsr_window_matmat` let each tile of
   block-rows read x only from a window of block-columns, staged in shared
@@ -148,6 +151,33 @@ def window_items(n_tiles, nb, per_pass, n_blocks):
     return plan
 
 
+def uses_gather8(r, c, nb):
+    """True when the gather wrapper's launch takes the staged 8 x 8 kernel
+    (``spmv_bsr_gather8_kernel``): 8 x 8 blocks and at least two columns.
+    One column, and every other block shape, take ``spmv_bsr_kernel``."""
+    return r == 8 and c == 8 and nb >= 2
+
+
+def gather8_steps(n_brow, L, nb, n_warps):
+    """The 8 x 8 gather kernel's walk: for each of ``n_warps`` warps of the
+    persistent grid, the list of ``(block-row pair, first column, columns,
+    first slot)`` steps it takes, in order.  Warp w takes the pairs w,
+    w + n_warps, ...; a pair's steps are its passes of at most
+    :data:`MAX_COLS_PER_PASS` columns, each over its slots 4 at a time
+    (the arithmetic of ``spmv_bsr_gather8_kernel``)."""
+    n_pairs = -(-n_brow // 2)
+    G, U = MAX_COLS_PER_PASS, 4
+    plan = []
+    for w in range(n_warps):
+        run = []
+        for pair in range(w, n_pairs, n_warps):
+            for j0 in range(0, nb, G):
+                for l0 in range(0, L, U):
+                    run.append((pair, j0, min(G, nb - j0), l0))
+        plan.append(run)
+    return plan
+
+
 def window_bases(window, n_cols, c):
     """Each tile's staged window base in block-columns, clamped so the
     window stays inside ``max(n_bcol, Wt)`` block-columns (the kernel's and
@@ -233,6 +263,8 @@ def _gather(kernel, wrapper, blocks, cols, x, n_rows):
                 n_brow, L, r, c, n_rows, x.shape[-1], nb, stream)
     _build.check(rc, kernel)
     wrapper.launches += 1
+    if uses_gather8(r, c, nb):
+        wrapper.gather8_launches += 1
     return y
 
 
@@ -288,12 +320,16 @@ bsr_matvec.launches = 0
 
 def bsr_matmat(blocks, cols, X, n_rows):
     """:func:`bsr_matvec` for b columns given as the rows of ``X`` (b,
-    n_cols); returns (b, n_rows).  Each block is read once for all b."""
+    n_cols); returns (b, n_rows).  Each block is read once for every
+    :data:`MAX_COLS_PER_PASS` columns, and every column gets the bits
+    :func:`bsr_matvec` gives it.  8 x 8 blocks take the staged kernel
+    (:func:`uses_gather8`; ``gather8_launches`` counts those launches)."""
     _rows("spmv_bsr_cols", X)
     return _gather("spmv_bsr_cols", bsr_matmat, blocks, cols, X, n_rows)
 
 
 bsr_matmat.launches = 0
+bsr_matmat.gather8_launches = 0
 
 
 def bsr_window_matvec(blocks, window, x, n_rows):

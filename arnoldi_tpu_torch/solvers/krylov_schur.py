@@ -29,7 +29,8 @@ item): complex dtypes, ``mesh``, checkpointing and double-word refinement.
 import numpy as np
 import torch
 
-from ..device import check_matmul_precision, numpy_dtype, torch_dtype
+from ..device import (check_matmul_precision, is_inexact, numpy_dtype,
+                      solver_dtype, torch_dtype)
 from ..linop import as_operator, cast_operator
 from ..ops import dense_tier
 from ..ops.ortho import block_cgs2
@@ -69,12 +70,19 @@ def _schur_blocks(T):
 
 def _operator_and_dtype(A, host_tier, device):
     """``(op, n, dtype)``: the operator on its device, or for the host tier
-    no operator (the workspace holds ``A`` itself) and ``A``'s own dtype."""
+    no operator (the workspace holds ``A`` itself), and ``A``'s dtype
+    promoted by :func:`~..device.solver_dtype` (an integer ``A`` is built
+    or cast in float64)."""
+    a_dtype = getattr(A, "dtype", None)
     if host_tier:
         if A.shape[0] != A.shape[1]:
             raise ValueError(f"need a square operator, got {A.shape}")
-        return None, A.shape[0], torch_dtype(A.dtype)
-    op = as_operator(A, device=device)
+        return None, A.shape[0], solver_dtype(a_dtype)
+    # A floating or complex A keeps its dtype (no copy); an integer one is
+    # built in, or cast to, its promoted dtype.
+    exact = a_dtype is not None and not is_inexact(a_dtype)
+    op = as_operator(A, dtype=solver_dtype(a_dtype) if exact else None,
+                     device=device)
     if op.shape[1] != op.shape[0]:
         raise ValueError(f"need a square operator, got {op.shape}")
     return op, op.shape[0], op.dtype

@@ -25,7 +25,7 @@ import scipy.sparse as sp
 import torch
 
 from ..native import host_engine
-from ..device import numpy_dtype, torch_dtype
+from ..device import numpy_dtype, solver_dtype, torch_dtype
 from .decomposition import (HOST_ORTHO, arnoldi_expand, block_arnoldi_expand,
                             host_arnoldi_expand)
 
@@ -40,7 +40,8 @@ def uses_host_tier(A, *, device, dtype=None, block_size=1, ortho="cgs_dgks"):
     The JAX package's rule (``krylov_schur.py:324-328``, ``lanczos.py:
     367-372``): ``A`` is a SciPy sparse matrix or a 2-D NumPy array, the
     driver is scalar (``block_size == 1``), the work dtype (``dtype``, or
-    ``A``'s own) is float64, ``ortho`` is one of ``HOST_ORTHO``, and either
+    ``A``'s own promoted by :func:`~..device.solver_dtype`: int64 input
+    works in float64) is float64, ``ortho`` is one of ``HOST_ORTHO``, and either
     n is at most ``ARNOLDI_HOST_TIER_N`` (default 32768) or the target
     ``device`` is the CPU (the port's form of JAX's CPU backend, where the
     tier takes every size).  A torch operator or tensor never qualifies,
@@ -52,8 +53,8 @@ def uses_host_tier(A, *, device, dtype=None, block_size=1, ortho="cgs_dgks"):
         return False
     if not (isinstance(ortho, str) and ortho in HOST_ORTHO):
         return False
-    wdtype = np.dtype(A.dtype) if dtype is None else numpy_dtype(torch_dtype(dtype))
-    if wdtype != np.float64:
+    wdtype = solver_dtype(A.dtype) if dtype is None else torch_dtype(dtype)
+    if wdtype != torch.float64:
         return False
     cap = int(os.environ.get("ARNOLDI_HOST_TIER_N", HOST_TIER_MAX_N))
     return A.shape[0] <= cap or torch.device(device).type == "cpu"

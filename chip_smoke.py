@@ -22,7 +22,11 @@ nonzero before the last line is printed):
    the BSR window kernel at edge shapes (b = 1, 3, 8, 11, 2^17 - 5 rows,
    unaligned views and column strides, (8, 8) and (4, 4) blocks), every
    column of its b-column form bit for bit against its single-column
-   form;
+   form; then the staged 8 x 8 gather kernel (``spmv_bsr_cols``) at edge
+   shapes (b = 2, 3, 8, 11, 16; 2^17 - 5 rows; 6 blocks a block-row; a
+   rectangular operator; unaligned views), every column bit for bit
+   against ``spmv_bsr``; each library yardstick is timed by CUDA events
+   and by the profiler's device time;
 2. solve A: ``partial_schur`` on ``laplace_2d(724)`` (n = 524,176, DIA
    kernel + fused CGS2), LM, k = 5, m = 80, float64, tol 1e-8, checked
    against the analytic spectrum;
@@ -39,8 +43,9 @@ nonzero before the last line is printed):
 7. solve F: the scattered 2^20 matrix by default routing (ELL b-column
    kernel), ``block_size=8``, LR, k = 5, m = 40, checked against solve B's
    ARPACK values;
-8. solve G: the scattered 2^20 matrix as BSR-8, ``block_size=8`` (BSR
-   gather kernel, b-column form), checked the same way;
+8. solve G: the scattered 2^20 matrix as BSR-8, ``block_size=8`` (the
+   staged 8 x 8 gather kernel, ``spmv_bsr_gather8_kernel``, on every
+   b-column call), checked the same way;
 9. solve H: the bandwidth-1024 matrix as BSR-8, scalar (BSR window kernel),
    checked against solve D's ARPACK values;
 10. solve I: ``partial_eigh`` on ``laplace_2d(724)`` (DIA + fused CGS2),
@@ -204,6 +209,7 @@ class KernelRecord:
         self.bound_ms = None
         self.bound_by = None
         self.library_ms = None      # one PyTorch call computing the same function
+        self.library_dev_ms = None  # that call's profiler device time
         self.library = "none"       # that call, or why there is none
 
     def time(self, kernel, plain, flush=None):
@@ -215,13 +221,18 @@ class KernelRecord:
     def set_bound(self, nbytes, flops):
         self.bound_ms, self.bound_by = bound(nbytes, flops)
 
-    def time_library(self, label, fn, want):
+    def time_library(self, label, fn, want, flush=None):
         """Time ``fn`` (one PyTorch call, operands built beforehand) as this
-        kernel's yardstick, after checking it computes the same values."""
+        kernel's yardstick, by CUDA events and by the profiler's device time
+        (with ``flush`` as the kernel's was taken), after checking it
+        computes the same values."""
         rel, _ = rel_err(fn(), want)
         self.library, self.library_ms = label, cuda_ms(fn)
-        print(f"  library {label}: {self.library_ms:.4f} ms (rel err against "
-              f"the plain version {rel:.1e})")
+        self.library_dev_ms = device_ms(fn, flush=flush)
+        dev = ("device not measured" if self.library_dev_ms is None
+               else f"device {self.library_dev_ms:.4f} ms")
+        print(f"  library {label}: {self.library_ms:.4f} ms, {dev} (rel err "
+              f"against the plain version {rel:.1e})")
 
     def check(self, label, dtype, got, want):
         import torch
@@ -269,13 +280,13 @@ def phase_kernels(mats):
             r.time(lambda: spmv_banded.banded_matvec(op.bands, x, op.offsets),
                    lambda: spmv_banded.banded_matvec_plain(op.bands, x, op.offsets),
                    flush=flush)
-            del flush
             n = op.shape[0]
             r.set_bound(op.bands.numel() * 8 + 2 * n * 8, 2 * op.bands.numel())
             A_csr = csr_tensor(mats["laplace"], dtype, dev)
             r.time_library("A_csr @ x (cuSPARSE SpMV)", lambda: A_csr @ x,
-                           spmv_banded.banded_matvec_plain(op.bands, x, op.offsets))
-            del A_csr
+                           spmv_banded.banded_matvec_plain(op.bands, x, op.offsets),
+                           flush=flush)
+            del A_csr, flush
 
     for label, A in (("scattered 2^20", mats["scattered"]),
                      ("mark(1000)", mats["mark"]),
@@ -361,10 +372,14 @@ def phase_kernels(mats):
     sync()
     phase_window_edges(rec, gen)
     sync()
+    phase_gather_edges(rec, gen)
+    sync()
     # The share of the bound against the event time and the device time:
     # they differ where the host paces the launches.
     for name, r in rec.items():
         lib = "none" if r.library_ms is None else f"{r.library_ms:.4f} ms"
+        if r.library_dev_ms is not None:
+            lib += f" (device {r.library_dev_ms:.4f} ms)"
         dev = ("device not measured" if r.dev_ms is None else
                f"device {r.dev_ms:.4f} ms, {100 * r.bound_ms / r.dev_ms:.0f} %")
         print(f"  time {name:<22} kernel {r.ms:.4f} ms   plain {r.plain_ms:.4f} ms   "
@@ -637,6 +652,67 @@ def phase_window_edges(rec, gen):
                             Y, spmv_bsr.bsr_matmat(blk, ids, X, nr)):
                         fail(f"{tag}: window and gather kernels differ")
         del op64, op, blk, ids, win
+
+
+GATHER_EDGE_NB = (2, 3, 8, 11, 16)   # 11, 16: passes of 8 columns re-read the blocks
+
+
+def phase_gather_edges(rec, gen, device="cuda"):
+    """Phase 1, gather kernel edge shapes at b >= 2 (8 x 8 blocks: the
+    staged gather kernel): a scattered matrix of 2^17 - 5 rows with
+    bandwidth 2^14 (its window exceeds the budget, so the operator routes
+    to the gather kernel; the odd column count takes the value-by-value
+    copies and leaves the last block-column part empty), one of 2^17 rows
+    with 6 blocks a block-row (L not a multiple of the 4 slots a step;
+    16-byte copies), and a rectangular operator (40,003 x 70,002: an odd
+    block-row count, a partial last block-row, 16-byte copies in float64),
+    b in GATHER_EDGE_NB, float64 and float32, X aligned and as a view one
+    element in (value-by-value copies), each against the plain version and
+    every column bit for bit against the single-column kernel.
+    ``device="cpu"`` rehearses it with the plain versions (no launch or
+    bit checks)."""
+    import torch
+
+    from arnoldi_tpu_torch import as_operator, matrices
+    from arnoldi_tpu_torch.linop import cast_operator
+    from arnoldi_tpu_torch.ops.kernels import spmv_bsr
+
+    dev = torch.device(device)
+    n = 2**17 - 5
+    shapes = (
+        ("scattered", matrices.random_scattered(2**17, 24, seed=3, bandwidth=2**14,
+                                                block=8)[:n, :n].tocsr()),
+        ("scattered L=6", matrices.random_scattered(2**17, 40, seed=5,
+                                                    bandwidth=2**14, block=8)),
+        ("rectangular", rectangular(40_003, 70_002, max_degree=3, seed=1)),
+    )
+    for name, A in shapes:
+        op64 = as_operator(A, format=("bsr", (8, 8)), device=dev)
+        if op64.uses_window:
+            fail(f"gather edges: the {name} operator should take the gather kernel")
+        for dtype in (torch.float64, torch.float32):
+            op = cast_operator(op64, dtype)
+            blk, ids, nr, nc = op.blocks, op.block_cols, op.n_rows, op.n_cols
+            label = f"BSR gather edge {name} {tuple(blk.shape)} x {nc}"
+            for nb in GATHER_EDGE_NB:
+                for view in (False, True):
+                    buf = torch.randn(nb * nc + view, generator=gen, device=dev,
+                                      dtype=dtype)
+                    X = buf[int(view):].view(nb, nc)
+                    tag = f"{label} b={nb}{', view one in' if view else ''}"
+                    before = spmv_bsr.bsr_matmat.gather8_launches
+                    Y = spmv_bsr.bsr_matmat(blk, ids, X, nr)
+                    if dev.type == "cuda" and \
+                            spmv_bsr.bsr_matmat.gather8_launches != before + 1:
+                        fail(f"{tag}: the staged gather kernel did not launch")
+                    rec["spmv_bsr_cols"].check(
+                        tag, dtype, Y, spmv_bsr.bsr_matvec_plain(blk, ids, X, nr))
+                    for j in range(nb if dev.type == "cuda" else 0):
+                        if not torch.equal(Y[j], spmv_bsr.bsr_matvec(
+                                blk, ids, X[j].contiguous(), nr)):
+                            fail(f"{tag}: column {j} differs from the single-column "
+                                 "gather kernel")
+        del op64, op, blk, ids
 
 
 def bsr_yardsticks(rec, names, A, op, x, X):
@@ -971,6 +1047,7 @@ def main():
     from arnoldi_tpu_torch.native import dense_tier as native_dense_tier
     from arnoldi_tpu_torch.native import host_engine
     from arnoldi_tpu_torch.ops import kernels
+    from arnoldi_tpu_torch.ops.kernels import spmv_bsr
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1115,9 +1192,14 @@ def main():
           f"block_size={B_COLS}, LR, k=5, m=40")
     op = bsr(A)
     before = counts()
+    staged = spmv_bsr.bsr_matmat.gather8_launches
     Q, T, hist_g, wall_g = solve("solve G", op, 5, "LR", 40, counts,
                                  block_size=B_COLS)
     check_launched("solve G", before, counts(), ("spmv_bsr_cols",))
+    staged = spmv_bsr.bsr_matmat.gather8_launches - staged
+    print(f"  spmv_bsr_cols launches of the staged 8 x 8 gather kernel: {staged}")
+    if staged != counts()["spmv_bsr_cols"] - before["spmv_bsr_cols"]:
+        fail("solve G did not launch spmv_bsr_gather8_kernel on every b-column call")
     check_arpack("solve G", A, Q, T, ref_b)
     del Q, op
 
@@ -1152,7 +1234,8 @@ def main():
          "launches": final[name], "max_abs_err": rec[name].max_abs_err,
          "ms": rec[name].ms, "plain_ms": rec[name].plain_ms,
          "bound_ms": rec[name].bound_ms, "bound_by": rec[name].bound_by,
-         "library_ms": rec[name].library_ms}
+         "library_ms": rec[name].library_ms, "dev_ms": rec[name].dev_ms,
+         "library_dev_ms": rec[name].library_dev_ms}
         for name, (_, source, replaces) in kernels.KERNELS.items()]}
     print(json.dumps(report))
     print(smi)

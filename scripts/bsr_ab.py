@@ -1,29 +1,39 @@
 #!/usr/bin/env python3
 """Time the BSR SpMV kernels of one checkout of ``arnoldi_tpu_torch`` on the card.
 
-    python3 scripts/bsr_ab.py [--repo DIR] [--label NAME] [--profile] [--solves]
-                              [--cols B]
+    python3 scripts/bsr_ab.py [--repo DIR] [--label NAME] [--matrix M]
+                              [--profile] [--library] [--solves] [--cols B]
+                              [--time-only]
 
 Imports ``arnoldi_tpu_torch`` from DIR (default: the checkout that holds this
-script), builds its CUDA kernels there, and times the four BSR kernel forms,
-float64, on "banded-1024" (``random_scattered(2^20, 24, seed=2,
-bandwidth=1024, block=8)`` as BSR-8, the window kernel's matrix in
-``chip_smoke.py``): ``spmv_bsr_window`` and ``spmv_bsr_window_cols`` (b = 8,
-or ``--cols B``),
-and the gather kernel's ``spmv_bsr`` and ``spmv_bsr_cols`` on the same
-matrix.  Each is checked against its plain version (relative error 1e-12),
-the window form against the gather form bit for bit, and the columns of the
-b-column window form against the single-column window kernel bit for bit;
-then timed as CUDA-event means of 20 back-to-back launches after 3 warm-up
-launches.  ``--profile`` adds the profiler's device time per call.
-``--solves`` also runs, warm, the float64 solves that launch the BSR
-kernels, as ``chip_smoke.py`` runs them (``partial_schur`` LR, k = 5,
-m = 40, tol 1e-8): D (``block_size=8``) and H (scalar) on banded-1024
-through the window kernel, and G (``block_size=8``) and C (scalar) on
-"scattered" (``seed=1, bandwidth=2^14``) through the gather kernel; for
-each, the median wall of 3 runs, the matvecs, and under the profiler one
-more run's device time (kernel and copy rows) and the BSR kernel's share
-of it.
+script), builds its CUDA kernels there, and times the BSR kernel forms,
+float64, on one matrix as BSR-8 (``--matrix``, both as ``chip_smoke.py``
+builds them):
+
+* ``banded`` (the default): "banded-1024", ``random_scattered(2^20, 24,
+  seed=2, bandwidth=1024, block=8)``, whose window fits shared memory:
+  ``spmv_bsr_window`` and ``spmv_bsr_window_cols``, and the gather kernel's
+  ``spmv_bsr`` and ``spmv_bsr_cols`` on the same matrix;
+* ``scattered``: ``random_scattered(2^20, 24, seed=1, bandwidth=2^14,
+  block=8)``, whose 4216-block-column window does not fit: the gather
+  kernel's ``spmv_bsr`` and ``spmv_bsr_cols``, as solves C and G run them.
+
+b = 8 columns, or ``--cols B``.  Each form is checked against its plain
+version (relative error 1e-12), the window form against the gather form bit
+for bit, and every column of each b-column form against its single-column
+form bit for bit; then timed as CUDA-event means of 20 back-to-back
+launches after 3 warm-up launches.  ``--profile`` adds the profiler's
+device time per call; ``--library`` times cuSPARSE's BSR SpMV and SpMM
+(``A_bsr @ x``, ``A_bsr @ Xt``) the same ways.  ``--solves`` also runs,
+warm, the float64 solves that launch the BSR kernels, as ``chip_smoke.py``
+runs them (``partial_schur`` LR, k = 5, m = 40, tol 1e-8): on banded, D
+(``block_size=8``) and H (scalar) through the window kernel, then G
+(``block_size=8``) and C (scalar) on "scattered" through the gather kernel;
+on scattered, G and C only.  For each, the median wall of 3 runs, the
+matvecs, and under the profiler one more run's device time (kernel and copy
+rows) and the BSR kernels' share of it.  ``--time-only`` skips every check,
+for a variant that computes something else on purpose (one that leaves
+out its x or block loads, to see what they cost).
 Prints one JSON line, with the card's name and power limit.  To compare two
 checkouts on one card, run it for each in one call, in turns (A B B A).
 Needs a card; exits nonzero without one.
@@ -93,17 +103,18 @@ def device_split(fn):
 
 def time_solves(op_window, op_gather):
     """Warm walls, matvecs and device split of solves D and H on
-    ``op_window`` and G and C on ``op_gather``."""
+    ``op_window`` (None: skipped) and G and C on ``op_gather``."""
     import torch
 
     from arnoldi_tpu_torch import partial_schur
 
     common = {"max_dim": 40, "stopping_criterion": 1e-8, "dtype": torch.float64,
               "sort_function": "LR", "ortho": "cgs2"}
-    runs = {"D": lambda: partial_schur(op_window, 5, block_size=8, **common),
-            "H": lambda: partial_schur(op_window, 5, **common),
-            "G": lambda: partial_schur(op_gather, 5, block_size=8, **common),
+    runs = {"G": lambda: partial_schur(op_gather, 5, block_size=8, **common),
             "C": lambda: partial_schur(op_gather, 5, **common)}
+    if op_window is not None:
+        runs = {"D": lambda: partial_schur(op_window, 5, block_size=8, **common),
+                "H": lambda: partial_schur(op_window, 5, **common), **runs}
     out = {}
     for label, fn in runs.items():
         hist = fn()[-1]                     # warm-up: libraries, workspaces
@@ -121,13 +132,33 @@ def time_solves(op_window, op_gather):
     return out
 
 
+def bsr_tensor(A, device):
+    """``A`` as a float64 torch BSR tensor with (8, 8) blocks (the cuSPARSE
+    yardstick's operand)."""
+    import numpy as np
+    import torch
+
+    B = A.tobsr(blocksize=(8, 8))
+    return torch.sparse_bsr_tensor(
+        torch.from_numpy(B.indptr.astype(np.int32)).to(device),
+        torch.from_numpy(B.indices.astype(np.int32)).to(device),
+        torch.from_numpy(B.data).to(device=device, dtype=torch.float64), size=B.shape)
+
+
+MATRICES = {"banded": {"seed": 2, "bandwidth": 1024},
+            "scattered": {"seed": 1, "bandwidth": 2**14}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=str(Path(__file__).resolve().parent.parent))
     ap.add_argument("--label", default="")
+    ap.add_argument("--matrix", choices=sorted(MATRICES), default="banded")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--library", action="store_true")
     ap.add_argument("--solves", action="store_true")
     ap.add_argument("--cols", type=int, default=8)
+    ap.add_argument("--time-only", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
 
@@ -143,50 +174,69 @@ def main():
     t0 = time.perf_counter()
     kernels.build()
     build_s = time.perf_counter() - t0
-    A = matrices.random_scattered(2**20, 24, seed=2, bandwidth=1024, block=8)
+    banded = args.matrix == "banded"
+    A = matrices.random_scattered(2**20, 24, block=8, **MATRICES[args.matrix])
     dev = torch.device("cuda")
     op = BsrOperator.from_scipy(A, device=dev)
-    if not op.uses_window:
-        raise SystemExit("bsr_ab: banded-1024 should take the window kernel")
+    if op.uses_window != banded:
+        raise SystemExit(f"bsr_ab: {args.matrix} should take the "
+                         f"{'window' if banded else 'gather'} kernel")
     gen = torch.Generator(device=dev).manual_seed(0)
     x = torch.randn(op.n_cols, generator=gen, device=dev, dtype=torch.float64)
     X = torch.randn(args.cols, op.n_cols, generator=gen, device=dev, dtype=torch.float64)
     blk, ids, win, nr = op.blocks, op.block_cols, op.window, op.n_rows
     forms = {
-        "spmv_bsr_window": (lambda: spmv_bsr.bsr_window_matvec(blk, win, x, nr),
-                            lambda: spmv_bsr.bsr_window_matvec_plain(blk, win, x, nr)),
-        "spmv_bsr_window_cols": (lambda: spmv_bsr.bsr_window_matmat(blk, win, X, nr),
-                                 lambda: spmv_bsr.bsr_window_matvec_plain(blk, win, X, nr)),
         "spmv_bsr": (lambda: spmv_bsr.bsr_matvec(blk, ids, x, nr),
                      lambda: spmv_bsr.bsr_matvec_plain(blk, ids, x, nr)),
         "spmv_bsr_cols": (lambda: spmv_bsr.bsr_matmat(blk, ids, X, nr),
                           lambda: spmv_bsr.bsr_matvec_plain(blk, ids, X, nr)),
     }
+    if banded:
+        forms = {
+            "spmv_bsr_window": (lambda: spmv_bsr.bsr_window_matvec(blk, win, x, nr),
+                                lambda: spmv_bsr.bsr_window_matvec_plain(blk, win, x, nr)),
+            "spmv_bsr_window_cols": (
+                lambda: spmv_bsr.bsr_window_matmat(blk, win, X, nr),
+                lambda: spmv_bsr.bsr_window_matvec_plain(blk, win, X, nr)),
+            **forms}
     out = {"label": args.label, "repo": str(Path(args.repo).resolve()),
-           "build_s": build_s, "blocks": list(blk.shape), "window": win.width,
-           "cols": args.cols}
+           "matrix": args.matrix, "build_s": build_s, "blocks": list(blk.shape),
+           "window": win.width, "cols": args.cols}
     got = {}
     for tag, (kernel, plain) in forms.items():
         got[tag], want = kernel(), plain()
         err = float((got[tag] - want).norm() / want.norm())
-        if not err <= 1e-12:
+        if not (err <= 1e-12 or args.time_only):
             raise SystemExit(f"bsr_ab: {tag} relative error {err:.3e}")
         out[tag] = {"ms": cuda_ms(kernel), "rel_err": err}
         if args.profile:
             out[tag]["device_ms"] = device_ms(kernel)
-    out["window_equals_gather"] = (
-        torch.equal(got["spmv_bsr_window"], got["spmv_bsr"])
-        and torch.equal(got["spmv_bsr_window_cols"], got["spmv_bsr_cols"]))
-    out["columns_equal_single"] = all(
-        torch.equal(got["spmv_bsr_window_cols"][j],
-                    spmv_bsr.bsr_window_matvec(blk, win, X[j], nr))
+    out["gather_columns_equal_single"] = all(
+        torch.equal(got["spmv_bsr_cols"][j], spmv_bsr.bsr_matvec(blk, ids, X[j], nr))
         for j in range(X.shape[0]))
+    if banded:
+        out["window_equals_gather"] = (
+            torch.equal(got["spmv_bsr_window"], got["spmv_bsr"])
+            and torch.equal(got["spmv_bsr_window_cols"], got["spmv_bsr_cols"]))
+        out["columns_equal_single"] = all(
+            torch.equal(got["spmv_bsr_window_cols"][j],
+                        spmv_bsr.bsr_window_matvec(blk, win, X[j], nr))
+            for j in range(X.shape[0]))
+    if args.library:
+        A_bsr, Xt = bsr_tensor(A, dev), X.T.contiguous()
+        for tag, fn in (("cusparse_spmv", lambda: A_bsr @ x),
+                        ("cusparse_spmm", lambda: A_bsr @ Xt)):
+            out[tag] = {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+        del A_bsr, Xt
     if args.solves:
-        A = matrices.random_scattered(2**20, 24, seed=1, bandwidth=2**14, block=8)
-        op_gather = BsrOperator.from_scipy(A, device=dev)
-        if op_gather.uses_window:
-            raise SystemExit("bsr_ab: the scattered matrix should take the gather kernel")
-        out["solves"] = time_solves(op, op_gather)
+        op_gather = op
+        if banded:
+            A = matrices.random_scattered(2**20, 24, block=8, **MATRICES["scattered"])
+            op_gather = BsrOperator.from_scipy(A, device=dev)
+            if op_gather.uses_window:
+                raise SystemExit("bsr_ab: the scattered matrix should take the "
+                                 "gather kernel")
+        out["solves"] = time_solves(op if banded else None, op_gather)
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()

@@ -281,3 +281,59 @@ def test_window_passes_at_the_budget():
     assert spmv_bsr.window_stages(per_pass, col_bytes) == 1
     assert spmv_bsr.window_stages(1, col_bytes) == 2
     assert spmv_bsr.window_cols_per_pass(8, spmv_bsr.MAX_SHARED_BYTES) == 0
+
+
+@pytest.mark.parametrize("blockshape,nb,want", [
+    ((8, 8), 1, False), ((8, 8), 2, True), ((8, 8), 8, True), ((8, 8), 16, True),
+    ((4, 4), 8, False), ((2, 8), 8, False)])
+def test_gather8_rule(blockshape, nb, want):
+    # the staged 8 x 8 gather kernel takes b >= 2 columns of 8 x 8 blocks;
+    # one column and every other shape keep the first gather kernel
+    assert spmv_bsr.uses_gather8(*blockshape, nb) == want
+
+
+@pytest.mark.parametrize("nb,n_warps", [(2, 1), (3, 5), (8, 7), (11, 3), (16, 64)])
+@pytest.mark.parametrize("case", ["mark20", "scattered", "rectangular"])
+def test_gather8_walk_computes_the_product(case, nb, n_warps):
+    # The staged gather kernel's walk (gather8_steps): warp w takes the
+    # block-row pairs w, w + n_warps, ...; a pair's steps cover its passes
+    # of at most 8 columns, each over its slots 4 at a time, and the last
+    # step of a pass writes it.  Following the walk step by step gives the
+    # product, and writes every (block-row, column) exactly once.
+    if case == "rectangular":
+        A = sp.random(203, 341, density=0.05, random_state=3, format="csr")
+    else:
+        A = mark(20) if case == "mark20" else random_scattered(
+            4096, 40, seed=5, bandwidth=512, block=8)
+    op = BsrOperator.from_scipy(A, device="cpu")
+    blk, ids = op.blocks.numpy(), op.block_cols.numpy()
+    n_brow, L = ids.shape
+    X = np.random.default_rng(1).standard_normal((nb, op.n_cols))
+    Xp = np.zeros((nb, (ids.max() + 1) * 8))
+    Xp[:, :op.n_cols] = X
+    plan = spmv_bsr.gather8_steps(n_brow, L, nb, n_warps)
+    n_pairs = -(-n_brow // 2)
+    assert len(plan) == n_warps
+    for w, run in enumerate(plan):
+        assert sorted({s[0] for s in run}) == list(range(w, n_pairs, n_warps))
+    Y = np.zeros((nb, n_brow * 8))
+    written = np.zeros((nb, n_brow), dtype=int)
+    for run in plan:
+        acc = {}
+        for pair, j0, cnt, l0 in run:
+            assert 1 <= cnt <= spmv_bsr.MAX_COLS_PER_PASS and l0 % 4 == 0
+            for brow in (2 * pair, 2 * pair + 1):
+                if brow >= n_brow:
+                    continue
+                part = acc.setdefault(brow, np.zeros((cnt, 8)))
+                for l in range(l0, min(l0 + 4, L)):
+                    xs = Xp[j0:j0 + cnt, ids[brow, l] * 8:ids[brow, l] * 8 + 8]
+                    part += xs @ blk[brow, l].T
+                if l0 + 4 >= L:                 # the pass's last chunk
+                    Y[j0:j0 + cnt, brow * 8:brow * 8 + 8] = acc.pop(brow)
+                    written[j0:j0 + cnt, brow] += 1
+        assert not acc
+    assert (written == 1).all()
+    want = spmv_bsr.bsr_matvec_plain(op.blocks, op.block_cols, torch.from_numpy(X),
+                                     op.n_rows).numpy()
+    np.testing.assert_allclose(Y[:, :op.n_rows], want, atol=1e-12)

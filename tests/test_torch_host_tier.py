@@ -259,3 +259,67 @@ def test_ritz_decomposition_matches_jax(case):
     # the residual identity ||A u - lambda u|| = |h_{m+1,m} s_m|
     np.testing.assert_allclose(true_res, got.approximate_residuals,
                                atol=1e-10)
+
+
+# Integer-valued operators: the port promotes a non-float real dtype to
+# np.result_type(dtype, float32), as the JAX package does, so int64 input
+# solves in float64.  On the host tier the solve is JAX's own with
+# dtype=np.float64 (equal matvec counts); through as_operator it takes the
+# device path (its own counts; JAX's device path on the CPU is not run).
+INT_DRIVERS = {
+    "schur": (jax_partial_schur, partial_schur, 116),
+    "eigh": (jax_partial_eigh, partial_eigh, 120),
+}
+
+
+def _int_values(driver, out):
+    if driver == "eigh":
+        return np.sort(np.asarray(out[0]))
+    return np.sort_complex(np.linalg.eigvals(np.asarray(to_numpy(out[1]))))
+
+
+def _int_case():
+    A = laplace_2d(16, 15).astype(np.int64).tocsr()
+    v0 = np.random.default_rng(0).standard_normal(A.shape[0])
+    return A, dict(stopping_criterion=TOL, v0=v0)
+
+
+@pytest.mark.parametrize("driver", sorted(INT_DRIVERS))
+def test_integer_operator_matches_jax_float64(driver):
+    jax_fn, fn, matvecs = INT_DRIVERS[driver]
+    A, kw = _int_case()
+    assert uses_host_tier(A, device="cpu")
+    ref = jax_fn(A, 5, dtype=np.float64, **kw)
+    got = fn(A, 5, device="cpu", **kw)
+    assert got[1].dtype == torch.float64
+    assert got[-1].total_matvecs == ref[-1].total_matvecs == matvecs
+    assert len(got[-1].residual_trace) == len(ref[-1].residual_trace)
+    np.testing.assert_allclose(_int_values(driver, got), _int_values(driver, ref),
+                               rtol=0, atol=1e-10)
+
+
+@pytest.mark.parametrize("driver", sorted(INT_DRIVERS))
+def test_integer_operator_on_the_device_path(driver):
+    from arnoldi_tpu.harness.suite import eigenvalues_match
+
+    jax_fn, fn, _ = INT_DRIVERS[driver]
+    A, kw = _int_case()
+    op = as_operator(A, device="cpu")
+    assert op.dtype == torch.int64
+    got = fn(op, 5, **kw)
+    assert got[1].dtype == torch.float64
+    ref = jax_fn(A, 5, dtype=np.float64, **kw)
+    which = "LA" if driver == "eigh" else "LM"
+    assert eigenvalues_match(_int_values(driver, got), _int_values(driver, ref),
+                             which, rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("dtype,want", [
+    (np.int64, torch.float64), (np.int32, torch.float64),
+    (np.int16, torch.float32), (np.bool_, torch.float32),
+    (np.float32, torch.float32), (torch.int64, torch.float64),
+    (torch.complex64, torch.complex64)])
+def test_solver_dtype_promotes_as_jax(dtype, want):
+    from arnoldi_tpu_torch.device import solver_dtype
+
+    assert solver_dtype(dtype) == want
