@@ -22,8 +22,13 @@ device is the CPU) run the whole solve on the host tier instead
 (``workspace.HostWorkspace``, :func:`~.workspace.uses_host_tier`), as the
 JAX package does, and return their results on the requested device.
 
+A float32 solve below tol 1e-6 is refined as the JAX package refines it:
+the float32 phase runs to ``max(tol, 2e-4)`` and a compact Krylov-Schur
+solve continues from its Schur rows in float64 (``solvers/refine.py``; no
+double-word arithmetic: Hopper has float64).
+
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): complex dtypes, ``mesh``, checkpointing and double-word refinement.
+item): complex dtypes, ``mesh`` and checkpointing.
 """
 
 import numpy as np
@@ -38,6 +43,7 @@ from ..utils import sorting
 from ..utils.history import History
 from ..utils.profiling import phase_clock
 from ..utils.random import rand_normalized_vector
+from . import refine as refinement
 from .decomposition import default_invariant_tol
 from .workspace import DeviceWorkspace, HostWorkspace, uses_host_tier
 
@@ -50,7 +56,7 @@ def _not_ported(what, item):
 def _work_dtype(op_dtype, dtype):
     wdtype = op_dtype if dtype is None else torch_dtype(dtype)
     if wdtype.is_complex:
-        raise _not_ported("a complex work dtype", "Queue 1 item 5")
+        raise _not_ported("a complex work dtype", "Queue 1 item 1")
     if wdtype not in (torch.float32, torch.float64):
         raise TypeError(f"work dtype must be float32 or float64, got {wdtype}")
     return wdtype
@@ -88,15 +94,6 @@ def _operator_and_dtype(A, host_tier, device):
     return op, op.shape[0], op.dtype
 
 
-def _check_refine(refine, wdtype, tol):
-    if refine == "dw" or (refine == "auto" and wdtype == torch.float32
-                          and tol < 1e-6):
-        raise _not_ported("refine (a float32 solve below tol 1e-6 continued "
-                          "in higher precision)", "Queue 1 item 8")
-    if refine not in ("auto", None, "none", False):
-        raise ValueError(f"refine={refine!r}: expected 'auto', 'dw' or None")
-
-
 def _start_rows(n, b, wdtype, dev, *, v0, generator, start_block, tol):
     """The (b, n) orthonormal start block on ``dev``: ``v0`` (or a unit
     Gaussian vector from ``generator``) and, for b > 1, b - 1 further
@@ -110,7 +107,7 @@ def _start_rows(n, b, wdtype, dev, *, v0, generator, start_block, tol):
         v0 = rand_normalized_vector(n, wdtype, device=dev, generator=generator)
     else:
         if v0.is_complex() if torch.is_tensor(v0) else np.iscomplexobj(v0):
-            raise _not_ported("a complex start vector", "Queue 1 item 5")
+            raise _not_ported("a complex start vector", "Queue 1 item 1")
         v0 = torch.as_tensor(v0).to(device=dev, dtype=wdtype)
         v0 = v0 / torch.linalg.vector_norm(v0)
     if b == 1:
@@ -196,9 +193,16 @@ def partial_schur(
         first use), and its results are copied to ``device`` at the end.
     lock : "soft" (default) or "hard", as in the JAX package; the block
         driver always locks softly.
-    refine : "auto" (default) or None.  A float32 solve to a tolerance
-        below 1e-6, where the JAX package would continue in double-word
-        arithmetic, raises ``NotImplementedError``; so does "dw".
+    refine : "auto" (default), "dw", or None / "none" / False (off).
+        "auto" refines a float32 solve to a tolerance below 1e-6 on a format
+        operator, a Gram over format operators or a callable with
+        ``fn_f64``: the float32 phase runs to ``max(tol, 2e-4)``, then a
+        float64 Krylov-Schur solve in a compact subspace (``m = min(max_dim,
+        max(2 nev + 6, 16))``, ``p = min(nev + 5, m - 1)``) continues from
+        its Schur rows to ``tol`` on the operator at its own values, and Q
+        and T come back in float64.  "dw" refines any solve (never on the
+        host tier).  ``History.total`` counts both phases' matvecs, the
+        restarts add up, and the residual trace ends with the target tol.
     block_size : ``b > 1`` runs block Krylov-Schur: b vectors a step, two
         block-gemm projections and CholQR2 (``block_cgs2``).  Finds
         eigenvalues of multiplicity up to b, and reads the basis once per b
@@ -222,14 +226,15 @@ def partial_schur(
     if b < 1:
         raise ValueError(f"block_size must be positive, got {block_size}")
     if mesh is not None:
-        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 13")
+        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 5")
     if checkpoint_path is not None or resume:
-        raise _not_ported("checkpoint_path=/resume=", "Queue 1 item 14")
+        raise _not_ported("checkpoint_path=/resume=", "Queue 1 item 6")
     if lock not in ("soft", "hard"):
         raise ValueError(f"lock={lock!r}: expected 'soft' or 'hard'")
+    refinement.check_refine(refine)
 
-    host_tier = uses_host_tier(A, device=device, dtype=dtype, block_size=b,
-                               ortho=ortho)
+    host_tier = refine != "dw" and uses_host_tier(
+        A, device=device, dtype=dtype, block_size=b, ortho=ortho)
     op, n, op_dtype = _operator_and_dtype(A, host_tier, device)
     tol = (default_invariant_tol(op_dtype) if stopping_criterion is None
            else float(stopping_criterion))
@@ -253,7 +258,11 @@ def partial_schur(
         raise ValueError(f"need 0 < nev < max_dim <= n, got {nev}, {max_dim}, {n}")
 
     wdtype = _work_dtype(op_dtype, dtype)
-    _check_refine(refine, wdtype, tol)
+    do_refine = refinement.refines(refine, op, wdtype, tol)
+    tol_target = tol
+    if do_refine:
+        tol = max(tol, refinement.FLOAT32_PHASE_TOL)
+    op_src = op           # the continuation's operator, before the cast
     if host_tier:
         dev = torch.device("cpu")     # where the start vector is made
     else:
@@ -464,6 +473,20 @@ def partial_schur(
     history.total = total_matvecs
     if not has_converged:
         raise ValueError("Has not converged !")
+    if do_refine and tol_target < tol:
+        with clock("refine.start_vector"):
+            v0r = refinement.refinement_start_vector(ws.V, nev_ret)
+        del ws, op     # free the work-dtype basis before float64 allocates
+        Q, T, r_extra, mv_extra = refinement.continue_refined(
+            op_src, v0r, nev, max_dim=max_dim, tol=tol_target,
+            sort_function=sort_function, max_restarts=max_restarts,
+            clock=clock)
+        history.total = total_matvecs + mv_extra
+        history.matvecs[:] = history.total
+        history.restarts[:] = history.restarts + r_extra
+        history.residual_trace.append(float(tol_target))
+        history.phases = clock.report()
+        return Q, T, history
     history.phases = clock.report()
     schur_vecs = ws.rows(nev_ret)     # back to the (n, nev) contract
     schur_mat = torch.from_numpy(T_out.astype(np_wdtype)).to(schur_vecs.device)

@@ -21,6 +21,11 @@ Two restart loops, chosen as the JAX package chooses them:
 
 ``torch.linalg.eigh`` on a CUDA tensor is cuSOLVER's (the JAX loop uses
 XLA's, not a Pallas kernel); it loads its library on its first call.
+
+A float32 solve below tol 1e-6 is refined as ``partial_schur`` refines it
+(``solvers/refine.py``): the float32 phase to ``max(tol, 2e-4)``, then a
+float64 Krylov-Schur continuation from its Ritz rows, whose Schur form gives
+the values (its diagonal) and the vectors.
 """
 
 from functools import partial
@@ -33,9 +38,10 @@ from ..device import check_matmul_precision
 from ..linop import cast_operator
 from ..ops.ortho import M_SQRT1_2, cgs_dgks
 from ..utils.profiling import phase_clock
+from . import refine as refinement
 from .decomposition import default_invariant_tol
-from .krylov_schur import (_check_refine, _not_ported, _operator_and_dtype,
-                           _start_rows, _work_dtype, _workspace)
+from .krylov_schur import (_not_ported, _operator_and_dtype, _start_rows,
+                           _work_dtype, _workspace)
 from .workspace import DeviceWorkspace, uses_host_tier
 
 __all__ = ["partial_eigh", "lanczos_selective_ortho",
@@ -177,7 +183,8 @@ def partial_eigh(
     Parameters are :func:`~arnoldi_tpu_torch.partial_schur`'s (``A``,
     ``max_dim``, ``stopping_criterion``, ``max_restarts``, ``dtype``,
     ``generator``, ``v0``, ``device``, ``refine``, ``_start_block``; the
-    host tier routes SciPy/NumPy input the same way), and:
+    host tier routes SciPy/NumPy input the same way; a refined solve returns
+    float64 values and vectors), and:
 
     which : "LA", "SA", "LM" or "SM".
     ortho : an ortho kernel name or callable; "selective" projects against
@@ -202,12 +209,13 @@ def partial_eigh(
     if b < 1:
         raise ValueError(f"block_size must be positive, got {block_size}")
     if mesh is not None:
-        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 13")
+        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 5")
     sort_function = _sym_sort(which)
     if max_restarts <= 0:
         raise ValueError(f"max_restarts must be positive, got {max_restarts}")
+    refinement.check_refine(refine)
 
-    host_tier = device_loop is not True and uses_host_tier(
+    host_tier = device_loop is not True and refine != "dw" and uses_host_tier(
         A, device=device, dtype=dtype, block_size=b, ortho=ortho)
     op, n, op_dtype = _operator_and_dtype(A, host_tier, device)
     tol = (default_invariant_tol(op_dtype) if stopping_criterion is None
@@ -225,7 +233,11 @@ def partial_eigh(
                          "max_dim")
 
     wdtype = _work_dtype(op_dtype, dtype)
-    _check_refine(refine, wdtype, tol)
+    do_refine = refinement.refines(refine, op, wdtype, tol)
+    tol_target = tol
+    if do_refine:
+        tol = max(tol, refinement.FLOAT32_PHASE_TOL)
+    op_src = op           # the continuation's operator, before the cast
     if host_tier:
         dev = torch.device("cpu")     # where the start vector is made
     else:
@@ -242,6 +254,20 @@ def partial_eigh(
 
     history = History.from_k(nev)
     clock = phase_clock()
+
+    def refined(v0r):
+        """Continue the converged phase in float64 from ``v0r`` (JAX's
+        ``_refine_result``): values ``diag(T)[:nev]``, vectors ``Q[:, :nev]``."""
+        Q, T, r_extra, mv_extra = refinement.continue_refined(
+            op_src, v0r, nev, max_dim=max_dim, tol=tol_target,
+            sort_function=sort_function, max_restarts=max_restarts,
+            clock=clock)
+        history.total = history.total_matvecs + mv_extra
+        history.matvecs[:] = history.total
+        history.restarts[:] = history.restarts + r_extra
+        history.phases = clock.report()
+        return torch.diagonal(T)[:nev].cpu().numpy(), Q[:, :nev], history
+
     # The start block stays apart from the workspaces, so the fallback
     # after a device-loop breakdown starts from it again.
     with clock("workspace_setup"):
@@ -264,6 +290,11 @@ def partial_eigh(
             history.total = total
             if not conv:
                 raise ValueError("Has not converged !")
+            if do_refine and tol_target < tol:
+                with clock("refine.start_vector"):
+                    v0r = refinement.refinement_start_vector(ws.V, nev)
+                del ws, op    # free the work-dtype basis before float64 allocates
+                return refined(v0r)
             history.phases = clock.report()
             return theta[:nev].cpu().numpy(), ws.rows(nev), history
         del ws   # breakdown: the host-orchestrated loop from V0, counts from 0
@@ -345,5 +376,10 @@ def partial_eigh(
     history.total = total_matvecs
     if not has_converged:
         raise ValueError("Has not converged !")
+    if do_refine and tol_target < tol:
+        with clock("refine.start_vector"):
+            v0r = refinement.refinement_start_vector(ws.V, nev)
+        del ws, op    # free the work-dtype basis before float64 allocates
+        return refined(v0r)
     history.phases = clock.report()
     return np.real(theta_final[:nev]), ws.rows(nev), history

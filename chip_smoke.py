@@ -60,21 +60,45 @@ nonzero before the last line is printed):
 13. solve L, the host tier: the bench's correctness gate (``laplace_2d(40,
     39)``, 4 LA pairs) and ``partial_schur(mark(100))`` LR against ARPACK,
     both passed as SciPy matrices with ``device="cuda"``: they must launch
-    no kernel, run in the C++ host engine and return CUDA tensors.
+    no kernel, run in the C++ host engine and return CUDA tensors;
+14. solve M, refinement: ``partial_schur`` on the scattered matrix as ELL
+    (float64 values) with ``dtype=float32``, tol 1e-8, LR, k = 5, m = 40:
+    the float32 phase to 2e-4 (float32 ELL and CGS2 kernels), then the
+    float64 continuation (float64 kernels); Q and T float64 on the card,
+    checked against solve B's ARPACK values, matvecs of each phase printed;
+15. solve N, refinement: ``partial_eigh`` on S, float32 to tol 1e-8, LA,
+    k = 5, m = 40, checked against solve J's ``eigsh`` values;
+16. solve O: ``svds`` of the reflected scattered matrix (the source of S),
+    k = 5, LM, float64, tol 1e-8, m = 40: Lanczos on the Gram operator,
+    ``spmv_ell`` on A and on the materialized A^T (``gram_companions``),
+    checked against ``scipy.sparse.linalg.svds`` (ARPACK, tol 1e-10), the
+    triplets ``||Av - su||``, ``||A^T u - sv||`` and orthonormality;
+17. solve P: solve B's ELL operator wrapped as ``CallableOperator(op.matvec,
+    ...)`` (the same matvec count as solve B), and a SciPy
+    ``LinearOperator`` of mark(1000) (a host matvec), LR, k = 5, m = 40,
+    ``device="cuda"``, against ARPACK (shift-invert just above 1);
+18. ``rmatvec``/``rmatmat`` (b = 1, 8) of DIA, ELL and BSR-8 (gather and
+    window) operators through their cached transposed operators, against
+    cuSPARSE's ``A.T @ x``, bit-equal over two calls.
 
-All solves run in float64 to tol 1e-8. ``partial_schur`` solves must give a
-Schur residual ``||AQ - QT|| / max|lambda| <= 1e-7`` and eigenvalues within
-1e-9 of the reference; ``partial_eigh`` solves a residual ``||Av - lambda
-v|| / max|lambda| <= 1e-7``, orthonormal vectors within 1e-10 and
-eigenvalues within 1e-9. A device solve that lands on the host tier fails
-the run. The kernels' launch counters are zeroed just before phase 2 and
-read after phase 13; every kernel must have launched, and each solve must
-have launched the kernels of its operator. The line before the last is a
-JSON object with each kernel's route, source, launches, error, times, bound
-and library time; the last line is ``{"ok": true, "device": {...}}``.
-Needs no network and imports nothing of JAX.
+Solves M, N and O run twice and must count the same matvecs both times.
+The solves of phases 2-13 run in float64 to tol 1e-8. ``partial_schur``
+solves must give a Schur residual ``||AQ - QT|| / max|lambda| <= 1e-7`` and
+eigenvalues within 1e-9 of the reference; ``partial_eigh`` solves a
+residual ``||Av - lambda v|| / max|lambda| <= 1e-7``, orthonormal vectors
+within 1e-10 and eigenvalues within 1e-9; the refined solves M and N meet
+the same limits. A device solve that lands on the host tier fails the run.
+The kernels' launch counters are zeroed just before phase 2 and read after
+phase 13 (the main path), then zeroed before phase 14 and read after phase
+17 (the refinement, svds and callable paths); every kernel must have
+launched on the main path, ELL and both CGS2 kernels on the second, and
+each solve must have launched the kernels of its operator. The line before
+the last is a JSON object with each kernel's route, source, launches,
+error, times, bound and library time; the last line is ``{"ok": true,
+"device": {...}}``. Needs no network and imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -741,8 +765,9 @@ def bsr_yardsticks(rec, names, A, op, x, X):
 
 
 def solve(label, op, nev, which, max_dim, sync_counts, block_size=1, p=None,
-          max_restarts=1000):
-    """One partial_schur solve on the card; returns (Q, T, hist, wall)."""
+          max_restarts=1000, dtype=None, device=None):
+    """One partial_schur solve on the card (in ``dtype``, default float64);
+    returns (Q, T, hist, wall)."""
     import torch
 
     from arnoldi_tpu_torch import partial_schur
@@ -750,9 +775,10 @@ def solve(label, op, nev, which, max_dim, sync_counts, block_size=1, p=None,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     Q, T, hist = partial_schur(op, nev, max_dim=max_dim, stopping_criterion=1e-8,
-                               sort_function=which, dtype=torch.float64,
-                               ortho="cgs2", max_restarts=max_restarts,
-                               block_size=block_size, p=p)
+                               sort_function=which,
+                               dtype=dtype or torch.float64, ortho="cgs2",
+                               max_restarts=max_restarts,
+                               block_size=block_size, p=p, device=device)
     sync()
     wall = time.perf_counter() - t0
     report_solve(label, hist, wall, sync_counts)
@@ -774,8 +800,9 @@ def report_solve(label, hist, wall, sync_counts, host_tier=False):
         fail(f"{label} ran on the {'host tier' if on_host else 'device'}")
 
 
-def eigh_solve(label, op, nev, max_dim, sync_counts, **kw):
-    """One partial_eigh solve on the card; returns (vals, V, hist, wall)."""
+def eigh_solve(label, op, nev, max_dim, sync_counts, dtype=None, **kw):
+    """One partial_eigh solve on the card (in ``dtype``, default float64);
+    returns (vals, V, hist, wall)."""
     import torch
 
     from arnoldi_tpu_torch import partial_eigh
@@ -783,8 +810,8 @@ def eigh_solve(label, op, nev, max_dim, sync_counts, **kw):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     vals, V, hist = partial_eigh(op, nev, which="LA", max_dim=max_dim,
-                                 stopping_criterion=1e-8, dtype=torch.float64,
-                                 **kw)
+                                 stopping_criterion=1e-8,
+                                 dtype=dtype or torch.float64, **kw)
     sync()
     wall = time.perf_counter() - t0
     report_solve(label, hist, wall, sync_counts)
@@ -914,19 +941,22 @@ def schur_residual(A, Q, T):
     return res, lam
 
 
-def symmetric_scattered(n):
-    """S = (A + A^T) / 2 of the scattered matrix with reflected edges (the
-    default clipped edges make hub rows that ELL refuses once transposed)."""
+def reflected_scattered(n, seed=1, bandwidth=2**14):
+    """The scattered matrix with reflected edges: the default clipped edges
+    pile the edge rows' blocks into the first and last block-columns, hub
+    columns that ELL and BSR refuse once transposed.  Its symmetric part
+    ``(A + A^T) / 2`` is S."""
     from arnoldi_tpu_torch import matrices
 
-    A = matrices.random_scattered(n, 24, seed=1, bandwidth=min(2**14, n // 4),
-                                  block=8, edge="reflect")
-    return ((A + A.T) / 2).tocsr()
+    return matrices.random_scattered(n, 24, seed=seed,
+                                     bandwidth=min(bandwidth, n // 4), block=8,
+                                     edge="reflect")
 
 
-def phase_hermitian(mats, counts, device="cuda"):
+def phase_hermitian(mats, counts, refs, device="cuda"):
     """Phases 10-13: partial_eigh on the card (solves I, J, K) and the host
-    tier (solve L).  Returns [(label, history, wall), ...]."""
+    tier (solve L).  Puts S's eigsh values in ``refs["S"]``; returns
+    [(label, history, wall), ...]."""
     import numpy as np
     import torch
     from scipy.sparse.linalg import eigs, eigsh
@@ -957,7 +987,8 @@ def phase_hermitian(mats, counts, device="cuda"):
 
     S = mats["symmetric"]
     t0 = time.perf_counter()
-    ref = eigsh(S, 5, which="LA", tol=1e-8, ncv=40, return_eigenvectors=False)
+    ref = refs["S"] = eigsh(S, 5, which="LA", tol=1e-8, ncv=40,
+                            return_eigenvectors=False)
     print(f"  eigsh on S (host, ncv=40) {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     op = as_operator(S, dtype=torch.float64, device=device)
@@ -1032,6 +1063,291 @@ def phase_hermitian(mats, counts, device="cuda"):
             ("L_gate", hist_l, wall_l), ("L_mark100", hist_l2, wall_l2)]
 
 
+@contextlib.contextmanager
+def continuation_matvecs():
+    """A list that collects the matvecs of each float64 continuation that
+    the refined solves inside the block run (``refine.refine_schur``
+    wrapped for its duration): a refined solve's history counts both
+    phases together."""
+    from arnoldi_tpu_torch.solvers import refine
+
+    inner, seen = refine.refine_schur, []
+
+    def counted(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        seen.append(out[3])
+        return out
+
+    refine.refine_schur = counted
+    try:
+        yield seen
+    finally:
+        refine.refine_schur = inner
+
+
+def check_refined(label, hist, outs, seen, device):
+    """A refined solve: float64 results on ``device``, one continuation,
+    ``refine.continue`` among the phases.  Returns (float32 phase's,
+    continuation's) matvecs."""
+    import torch
+
+    for t in outs:
+        if t.dtype != torch.float64 or t.device.type != torch.device(device).type:
+            fail(f"{label} returned a {t.dtype} tensor on {t.device}, not "
+                 f"float64 on {device}")
+    if "refine.continue" not in hist.phases or len(seen) != 1:
+        fail(f"{label} did not continue in float64 once: {seen}")
+    split = (hist.total_matvecs - seen[0], seen[0])
+    print(f"  matvecs: float32 phase {split[0]}, float64 continuation {split[1]}")
+    return split
+
+
+def twice(label, run):
+    """Run a solve twice (``run()`` returns ``(..., hist, wall)``); fail
+    unless both count the same matvecs (the kernels reduce in a fixed
+    order, so a rerun repeats every bit).  Returns the second run's."""
+    first, second = run(), run()
+    if first[-2].total_matvecs != second[-2].total_matvecs:
+        fail(f"{label}: {first[-2].total_matvecs} matvecs, then "
+             f"{second[-2].total_matvecs}")
+    print(f"  {label} again: {second[-2].total_matvecs} matvecs, the same; "
+          f"walls {first[-1]:.4f} / {second[-1]:.4f} s")
+    return second
+
+
+def short(kernel_name):
+    """A profiler kernel name without its return type and namespace, cut
+    to 60 characters (the template arguments show the dtype)."""
+    name = kernel_name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name[:60]
+
+
+def device_split(label, run):
+    """One more warm run of a solve under the profiler: its device time
+    (kernel and copy rows) by kernel name, and the busy share of the
+    profiled wall.  Returns ``{"device_ms": ..., "busy": ...}``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        sync()
+    wall = time.perf_counter() - t0
+    by_name = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    total = sum(by_name.values())
+    busy = total / 1e3 / wall if wall else 0.0
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"  {label} under the profiler: wall {wall:.4f} s, device {total:.3f} ms "
+          f"(busy {100 * busy:.1f} %); by kernel (ms): "
+          + "; ".join(f"{short(name)} {ms:.3f}" for name, ms in top))
+    return {"profiled_wall_s": wall, "device_ms": total, "busy": busy}
+
+
+def phase_refine_svd(mats, counts, refs, device="cuda"):
+    """Phases 14-17: the refined solves M (``partial_schur``) and N
+    (``partial_eigh``), the partial SVD O (``svds``) and the callable
+    operators P.  ``refs``: solve B's ARPACK values and matvecs, S's eigsh
+    values.  M, N and O run once more under the profiler (``device_split``,
+    with ``device="cuda"``).  Returns ``([(label, history, wall), ...],
+    {label: {summary field: value}})``: the float32 phase's and the
+    continuation's matvecs, device time and busy share."""
+    import numpy as np
+    import torch
+    from scipy.sparse.linalg import aslinearoperator, eigs
+    from scipy.sparse.linalg import svds as scipy_svds
+
+    from arnoldi_tpu_torch import CallableOperator, as_operator, svds
+    from arnoldi_tpu_torch.solvers.svd import gram_companions
+
+    rows, extra = [], {}
+    profiled = device_split if torch.device(device).type == "cuda" else (
+        lambda label, run: {})
+    print("phase 14: solve M, partial_schur refined: the scattered matrix as "
+          "ELL (float64 values), float32 to tol 1e-8, LR, k=5, m=40")
+    A = mats["scattered"]
+    op = as_operator(A, dtype=torch.float64, device=device)
+    before = counts()
+    def run_m():
+        return solve("solve M", op, 5, "LR", 40, counts, dtype=torch.float32)
+
+    with continuation_matvecs() as seen:
+        Q, T, hist_m, wall_m = twice("solve M", run_m)
+    check_launched("solve M", before, counts(),
+                   ("spmv_ell", "masked_project", "project_update_norm"))
+    if seen[0] != seen[1]:
+        fail(f"solve M: continuations of {seen} matvecs")
+    f32, f64 = check_refined("solve M", hist_m, (Q, T), seen[1:], device)
+    check_arpack("solve M", A, Q, T, refs["B"])
+    rows.append(("M", hist_m, wall_m))
+    del Q, T
+    extra["M"] = dict(float32_matvecs=f32, float64_matvecs=f64,
+                      **profiled("solve M", run_m))
+
+    print("phase 15: solve N, partial_eigh refined: S as ELL (float64 "
+          "values), float32 to tol 1e-8, LA, k=5, m=40, scalar")
+    S = mats["symmetric"]
+    op = as_operator(S, dtype=torch.float64, device=device)
+    before = counts()
+    def run_n():
+        return eigh_solve("solve N", op, 5, 40, counts, dtype=torch.float32)
+
+    with continuation_matvecs() as seen:
+        vals, V, hist_n, wall_n = twice("solve N", run_n)
+    check_launched("solve N", before, counts(),
+                   ("spmv_ell", "masked_project", "project_update_norm"))
+    if seen[0] != seen[1]:
+        fail(f"solve N: continuations of {seen} matvecs")
+    f32, f64 = check_refined("solve N", hist_n, (V,), seen[1:], device)
+    if vals.dtype != np.float64:
+        fail(f"solve N returned {vals.dtype} eigenvalues")
+    check_eigsh("solve N", S, vals, V, refs["S"])
+    rows.append(("N", hist_n, wall_n))
+    del V
+    extra["N"] = dict(float32_matvecs=f32, float64_matvecs=f64,
+                      **profiled("solve N", run_n))
+    del op
+
+    print("phase 16: solve O, svds of the reflected scattered matrix (the "
+          "source of S), k=5, LM, float64, tol 1e-8, m=40: Lanczos on A^T A")
+    A = mats["reflect"]
+    t0 = time.perf_counter()
+    ref = np.sort(scipy_svds(A, 5, solver="arpack", tol=1e-10,
+                             return_singular_vectors=False))
+    print(f"  ARPACK svds (host, tol 1e-10) {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    op = as_operator(A, dtype=torch.float64, device=device)
+    companions = gram_companions(A, op)
+    sync()
+    print(f"  A: {type(op).__name__} L={op.data.shape[1]}; A^T: "
+          f"{type(companions[0]).__name__} L={companions[0].data.shape[1]}; "
+          f"built in {time.perf_counter() - t0:.3f} s")
+
+    def run_o():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = svds(op, 5, which="LM", tol=1e-8, ncv=40, dtype=torch.float64,
+                   companions=companions, return_history=True)
+        sync()
+        wall = time.perf_counter() - t0
+        report_solve("solve O", out[3], wall, counts)
+        return (*out, wall)
+
+    before = counts()
+    U, s, Vh, hist_o, wall_o = twice("solve O", run_o)
+    check_launched("solve O", before, counts(), ("spmv_ell",))
+    Uh, Vt = U.cpu().numpy(), Vh.cpu().numpy().T
+    sv_err = float(np.abs(s - ref).max() / ref.max())
+    r_av = float(np.linalg.norm(A @ Vt - Uh * s, axis=0).max() / s.max())
+    r_atu = float(np.linalg.norm(A.T @ Uh - Vt * s, axis=0).max() / s.max())
+    orth = max(np.abs(Uh.T @ Uh - np.eye(5)).max(),
+               np.abs(Vt.T @ Vt - np.eye(5)).max())
+    print(f"  singular values {s}; ARPACK {ref}")
+    print(f"  relative error {sv_err:.3e} (limit 1e-9); |Av - su| / s_max "
+          f"{r_av:.3e}, |A^T u - sv| / s_max {r_atu:.3e} (limits 1e-7); "
+          f"orthonormality {orth:.3e} (limit 1e-10)")
+    if not (sv_err <= 1e-9 and r_av <= 1e-7 and r_atu <= 1e-7 and orth <= 1e-10):
+        fail("solve O disagrees with ARPACK's svds or its triplets are off")
+    rows.append(("O", hist_o, wall_o))
+    del U, Vh
+    extra["O"] = profiled("solve O", run_o)
+    del op, companions
+
+    print("phase 17: solve P, CallableOperator(op.matvec) of solve B's ELL "
+          "operator, and a SciPy LinearOperator (mark(1000), LR, k=5)")
+    A = mats["scattered"]
+    op = as_operator(A, dtype=torch.float64, device=device)
+    fn_op = CallableOperator(op.matvec, op.shape, op.dtype, device=op.device)
+    before = counts()
+    Q, T, hist_p, wall_p = solve("solve P", fn_op, 5, "LR", 40, counts)
+    check_launched("solve P", before, counts(), ("spmv_ell",))
+    if hist_p.total_matvecs != refs["B_matvecs"]:
+        fail(f"solve P: {hist_p.total_matvecs} matvecs, solve B "
+             f"{refs['B_matvecs']}: the same kernel should repeat its bits")
+    check_arpack("solve P", A, Q, T, refs["B"])
+    rows.append(("P", hist_p, wall_p))
+    del Q, op, fn_op
+    M = mats["mark"]
+    # ARPACK in shift-invert mode just above 1, the top of mark's real
+    # spectrum: the five largest real values, ~8x faster than ARPACK's own
+    # LR iteration on this clustered end (168 s on the card's host).
+    t0 = time.perf_counter()
+    ref = eigs(M, 5, sigma=1.001, which="LM", tol=1e-12,
+               return_eigenvectors=False)
+    print(f"  ARPACK shift-invert on mark(1000) (host, sigma 1.001) "
+          f"{time.perf_counter() - t0:.2f} s")
+    Q, T, hist_p2, wall_p2 = solve("solve P, SciPy LinearOperator mark(1000)",
+                                   aslinearoperator(M), 5, "LR", 40, counts,
+                                   device=device, max_restarts=5000)
+    check_arpack("solve P, mark(1000)", M, Q, T, ref)
+    rows.append(("P_linear_operator", hist_p2, wall_p2))
+    return rows, extra
+
+
+def phase_adjoint_edges(mats, device="cuda"):
+    """Phase 18: ``rmatvec`` (b = 1) and ``rmatmat`` (b = 8) of DIA
+    (laplace_2d(724)), ELL (the rectangular 200,000 x 300,000 matrix) and
+    BSR-8 operators (the reflected scattered matrix: gather kernel; a
+    reflected banded-1024 matrix of 2^18 rows: window kernel), float64 and
+    float32: each through its cached transposed operator against
+    ``A.T @ x`` from cuSPARSE, and bit-equal over two calls.  Its launches
+    are checks and are not counted."""
+    import torch
+
+    from arnoldi_tpu_torch import as_operator, rmatmat, rmatvec
+    from arnoldi_tpu_torch.linop import adjoint_operator, cast_operator
+
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = (
+        ("DIA laplace_2d(724)", mats["laplace"], None, None),
+        ("ELL rect", mats["rect"], "ell", None),
+        ("BSR-8 gather, reflected scattered", mats["reflect"], ("bsr", (8, 8)),
+         False),
+        ("BSR-8 window, reflected banded-1024", mats["window_reflect"],
+         ("bsr", (8, 8)), True),
+    )
+    for name, A, fmt, window in cases:
+        op64 = as_operator(A, format=fmt, dtype=torch.float64, device=dev)
+        for dtype in (torch.float64, torch.float32):
+            op = cast_operator(op64, dtype)
+            adj = adjoint_operator(op)
+            if window is not None and adj.uses_window != window:
+                fail(f"adjoint edges: {name}'s transpose should take the "
+                     f"{'window' if window else 'gather'} kernel")
+            At = csr_tensor(A.T.tocsr(), dtype, dev)
+            limit = F64_LIMIT if dtype == torch.float64 else F32_LIMIT
+            for nb in (1, 8):
+                Y = torch.randn((A.shape[0], nb), generator=gen, dtype=dtype,
+                                device=dev)
+                if nb == 1:
+                    y = Y[:, 0].contiguous()
+                    got, again, want = rmatvec(op, y), rmatvec(op, y), At @ y
+                else:
+                    got, again, want = rmatmat(op, Y), rmatmat(op, Y), At @ Y
+                rel, abs_err = rel_err(got, want)
+                print(f"  adjoint {name} {tuple(A.shape)} {str(dtype):<14} b={nb}: "
+                      f"{type(adj).__name__} L={adj_width(adj)}, rel {rel:.3e} "
+                      f"max_abs {abs_err:.3e} (limit {limit:g}), bit-equal "
+                      f"{torch.equal(got, again)}")
+                if not (rel <= limit and torch.equal(got, again)):
+                    fail(f"adjoint {name} {dtype} b={nb}: error {rel:.3e} or "
+                         "unequal bits over two calls")
+        del op64, op, adj, At
+
+
+def adj_width(op):
+    """The padded width of an operator's rows: ELL slots, BSR blocks or DIA
+    diagonals."""
+    return {"EllOperator": lambda: op.data.shape[1],
+            "BsrOperator": lambda: op.blocks.shape[1],
+            "BandedOperator": lambda: len(op.offsets)}[type(op).__name__]()
+
+
 def main():
     import torch
 
@@ -1082,8 +1398,10 @@ def main():
         "rect": rectangular(200_000, 300_000, max_degree=60, seed=0),
         "window": matrices.random_scattered(2**20, 24, seed=2,
                                             bandwidth=1024, block=8),
-        "symmetric": symmetric_scattered(2**20),
+        "reflect": reflected_scattered(2**20),
+        "window_reflect": reflected_scattered(2**18, seed=2, bandwidth=1024),
     }
+    mats["symmetric"] = ((mats["reflect"] + mats["reflect"].T) / 2).tocsr()
     print(f"  host matrices built in {time.perf_counter() - t0:.2f} s")
 
     print("phase 1: kernels against their plain PyTorch versions")
@@ -1212,20 +1530,38 @@ def main():
     check_arpack("solve H", A_win, Q, T, ref_d)
     del Q, op
 
-    hermitian = phase_hermitian(mats, counts)
+    refs = {"B": ref_b, "B_matvecs": hist_b.total_matvecs}
+    hermitian = phase_hermitian(mats, counts, refs)
 
     final = counts()
     missing = [k for k, v in final.items() if v == 0]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     print(f"launches on the main path (phases 2-13): {final}")
+
+    # The refinement, svds and callable paths, counted on their own.
+    kernels.reset_launch_counts()
+    refined, extra = phase_refine_svd(mats, counts, refs)
+    refine_path = counts()
+    idle = [k for k in ("spmv_ell", "masked_project", "project_update_norm")
+            if refine_path[k] == 0]
+    if idle:
+        fail(f"kernels of phases 14-17 never launched there: {idle}")
+    print(f"launches on the refinement, svds and callable paths (phases "
+          f"14-17): {refine_path}")
+
+    print("phase 18: adjoint products through the transposed operators")
+    phase_adjoint_edges(mats)
+
     summary = {label: {"matvecs": h.total_matvecs, "restarts": len(h.residual_trace),
                        "wall_s": w, "ms_per_matvec": 1e3 * w / h.total_matvecs}
                for label, h, w in (("A", hist_a, wall_a), ("B", hist_b, wall_b),
                                    ("C", hist_c, wall_c), ("D", hist_d, wall_d),
                                    ("E", hist_e, wall_e), ("F", hist_f, wall_f),
                                    ("G", hist_g, wall_g), ("H", hist_h, wall_h),
-                                   *hermitian)}
+                                   *hermitian, *refined)}
+    for label, fields in extra.items():
+        summary[label].update(fields)
     print(f"solves: {json.dumps(summary)}")
     print(f"card: {smi}")
 
@@ -1235,7 +1571,8 @@ def main():
          "ms": rec[name].ms, "plain_ms": rec[name].plain_ms,
          "bound_ms": rec[name].bound_ms, "bound_by": rec[name].bound_by,
          "library_ms": rec[name].library_ms, "dev_ms": rec[name].dev_ms,
-         "library_dev_ms": rec[name].library_dev_ms}
+         "library_dev_ms": rec[name].library_dev_ms,
+         "launches_phases_14_17": refine_path[name]}
         for name, (_, source, replaces) in kernels.KERNELS.items()]}
     print(json.dumps(report))
     print(smi)

@@ -183,8 +183,8 @@ def test_host_tier_keeps_the_refusals():
     A = mark(10)
     with pytest.raises(ValueError, match="device="):
         partial_schur(A, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partial_schur(A, 3, device="cpu", refine="dw")
+    with pytest.raises(ValueError, match="refine"):
+        partial_schur(A, 3, device="cpu", refine="bogus")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         partial_schur(A, 3, device="cpu", v0=np.ones(55, np.complex128))
 

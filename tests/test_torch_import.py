@@ -1,6 +1,7 @@
 """``arnoldi_tpu_torch`` imports and solves (``partial_schur`` scalar, block
-over BSR-8 and on the host tier; ``partial_eigh`` on both loops and on the
-host tier) where JAX cannot be imported, a CPU solve never builds or loads
+over BSR-8, on the host tier and refined from float32; ``partial_eigh`` on
+both loops and on the host tier; ``svds`` over a Gram with its adjoint
+leg) where JAX cannot be imported, a CPU solve never builds or loads
 the CUDA kernel library, and nothing is loaded from the JAX package's tree:
 no module and no shared library (the port's own host libraries build under
 ``build/arnoldi_tpu_torch/``)."""
@@ -24,6 +25,7 @@ from arnoldi_tpu_torch import partial_eigh, partial_schur
 from arnoldi_tpu_torch import matrices
 from arnoldi_tpu_torch.ops import kernels
 from arnoldi_tpu_torch.ops.kernels import _build
+from arnoldi_tpu_torch.solvers import refine, svd
 from arnoldi_tpu_torch.solvers.workspace import uses_host_tier
 A = matrices.mark(12)
 assert uses_host_tier(A, device="cpu")
@@ -40,6 +42,14 @@ solves = [partial_eigh(S, 3, device="cpu"),                     # host tier
 for vals, vecs, _ in solves:
     V = vecs.numpy()
     res = max(res, np.linalg.norm(S @ V - V * vals, axis=0).max())
+Q, T, hist = partial_schur(arnoldi_tpu_torch.as_operator(A, device="cpu"), 3,
+                           sort_function="LR", dtype=np.float32,
+                           stopping_criterion=1e-8)          # refined
+assert Q.dtype == torch.float64
+res = max(res, np.linalg.norm(A @ Q.numpy() - Q.numpy() @ T.numpy(), axis=0).max())
+R = A[:, :40]
+U, s, Vh = arnoldi_tpu_torch.svds(R, 2, device="cpu")
+res = max(res, np.abs(R @ Vh.numpy().T - U.numpy() * s).max())
 print(json.dumps({
     "residual": float(res),
     "jax_modules": sorted(m for m, mod in sys.modules.items()

@@ -190,8 +190,8 @@ def test_host_input_needs_a_device():
     dict(mesh=object()),
     dict(checkpoint_path="run.npz"),
     dict(resume=True),
-    dict(refine="dw"),
-    dict(dtype=np.float32, stopping_criterion=1e-8),     # JAX would refine
+    dict(refine="dw", dtype=np.complex64),     # a refined complex solve
+    dict(dtype=np.complex64),
     dict(v0=np.ones(55, np.complex128)),
 ], ids=lambda kw: next(iter(kw)))
 def test_outside_the_slice_raises(kwargs):

@@ -257,10 +257,11 @@ def test_geometry_and_refusals():
         partial_eigh(op, 3, max_dim=3)      # p = 2 < nev
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         partial_eigh(op, 3, mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partial_eigh(op, 3, refine="dw")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partial_eigh(op, 3, dtype=np.float32, stopping_criterion=1e-8)
+    with pytest.raises(ValueError, match="refine"):
+        partial_eigh(op, 3, refine="bogus")
+    # float32 below tol 1e-6 is refined: float64 values and vectors
+    v, V, h = partial_eigh(op, 3, dtype=np.float32, stopping_criterion=1e-8)
+    assert V.dtype == torch.float64 and v.dtype == np.float64
     # block geometry: max_dim 21 rounds up to 24 at b = 4
     v, V, h = partial_eigh(op, 3, max_dim=21, block_size=4,
                            stopping_criterion=1e-9)

@@ -188,8 +188,20 @@ def test_host_input_needs_a_device():
 def test_outside_the_slice_raises():
     from scipy.sparse.linalg import aslinearoperator
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        as_operator(aslinearoperator(mark(5)), device="cpu")
+    from arnoldi_tpu_torch import CallableOperator
+
+    # a SciPy LinearOperator is wrapped (its matvec runs on the host) ...
+    A = mark(5)
+    lin = as_operator(aslinearoperator(A), device="cpu")
+    assert isinstance(lin, CallableOperator) and lin.dtype == torch.float64
+    x = np.random.default_rng(0).standard_normal(A.shape[0])
+    np.testing.assert_allclose(lin.matvec(torch.from_numpy(x)).numpy(), A @ x,
+                               rtol=1e-14)
+    with pytest.raises(ValueError, match="device="):
+        as_operator(aslinearoperator(A))
+    # ... and anything else that is no operator still raises
+    with pytest.raises(TypeError, match="Cannot convert"):
+        as_operator(object(), device="cpu")
     op = as_operator(mark(20), device="cpu")
     with pytest.raises(ValueError, match="re-formatted"):
         as_operator(op, format="banded")
