@@ -15,6 +15,10 @@ from .linop import (BandedOperator, BsrOperator, CallableOperator,
 from .solvers.decomposition import RitzDecomposition, arnoldi_decomposition
 from .solvers.krylov_schur import eigenpairs_from_partial_schur, partial_schur
 from .solvers.lanczos import partial_eigh
+from .solvers.spectral_transform import (eigs, eigs_realified, eigsh,
+                                         generalized_operator,
+                                         realify_operator,
+                                         shift_invert_operator)
 from .solvers.svd import gram_companions, svds
 
 __all__ = [
@@ -29,11 +33,17 @@ __all__ = [
     "arnoldi_decomposition",
     "as_operator",
     "eigenpairs_from_partial_schur",
+    "eigs",
+    "eigs_realified",
+    "eigsh",
+    "generalized_operator",
     "gram_companions",
     "pad_operator",
     "partial_eigh",
     "partial_schur",
+    "realify_operator",
     "rmatmat",
     "rmatvec",
+    "shift_invert_operator",
     "svds",
 ]

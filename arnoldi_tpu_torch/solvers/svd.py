@@ -23,8 +23,7 @@ import numpy as np
 import torch
 
 from ..device import torch_dtype
-from ..linop import (GramOperator, _not_ported, as_operator, cast_operator,
-                     rmatmat)
+from ..linop import GramOperator, as_operator, cast_operator, rmatmat
 from ..utils.profiling import phase_clock
 from .decomposition import default_invariant_tol
 from .lanczos import partial_eigh
@@ -34,8 +33,8 @@ __all__ = ["svds", "gram_companions"]
 
 def svds(A, k=6, *, which="LM", sigma=None, tol=None, ncv=None,
          maxiter=1000, dtype=None, generator=None, v0=None, block_size=1,
-         return_singular_vectors=True, return_history=False, companions=None,
-         device=None):
+         inner_solver="gmres", inner_tol=None, return_singular_vectors=True,
+         return_history=False, companions=None, device=None):
     """Compute ``k`` singular triplets of ``A`` (any shape).
 
     ``A`` is anything :func:`~arnoldi_tpu_torch.as_operator` takes (SciPy
@@ -49,15 +48,19 @@ def svds(A, k=6, *, which="LM", sigma=None, tol=None, ncv=None,
     a float32 solve below 1e-6 is refined), ``v0`` a start vector of
     length ``min(A.shape)``.
     ``companions``: a prebuilt :func:`gram_companions` tuple (repeated
-    solves on one matrix build the adjoint once).  ``sigma`` (singular
-    values nearest sigma, by shift-invert) is not ported yet.
+    solves on one matrix build the adjoint once).
+
+    ``sigma`` selects the ``k`` singular values nearest ``sigma`` (and
+    ``which`` is ignored): shift-invert Lanczos on the Gram operator at
+    ``sigma**2`` (inner solves by ``inner_solver``, default gmres, since
+    the shifted Gram is indefinite, to ``inner_tol``, default ``tol/100``)
+    converges a buffered set of ``k + max(2, k//2)`` values nearest in the
+    squared domain, of which the ``k`` nearest ``|sigma|`` in the linear
+    domain are kept: ``|s^2 - sigma^2|`` overweights values above sigma.
     """
     if which not in ("LM", "SM"):
         raise ValueError(
             f"which={which!r}: expected 'LM' (largest) or 'SM' (smallest)")
-    if sigma is not None:
-        raise _not_ported("svds(sigma=) (shift-invert on the Gram operator)",
-                          "Queue 1 item 2")
 
     clock = phase_clock()     # no-op unless ARNOLDI_PHASES is set
     with clock("svds.operator_build"):
@@ -78,10 +81,16 @@ def svds(A, k=6, *, which="LM", sigma=None, tol=None, ncv=None,
         tol = default_invariant_tol(torch_dtype(dtype) if dtype is not None
                                     else op.dtype)
 
-    theta, W, hist = partial_eigh(
-        gram, k, which="LA" if which == "LM" else "SA", max_dim=ncv,
-        stopping_criterion=tol, max_restarts=maxiter, dtype=dtype,
-        generator=generator, v0=v0, block_size=block_size)
+    if sigma is None:
+        theta, W, hist = partial_eigh(
+            gram, k, which="LA" if which == "LM" else "SA", max_dim=ncv,
+            stopping_criterion=tol, max_restarts=maxiter, dtype=dtype,
+            generator=generator, v0=v0, block_size=block_size)
+    else:
+        theta, W, hist = _nearest_sigma(
+            gram, k, sigma, ncv=ncv, tol=tol, maxiter=maxiter, dtype=dtype,
+            generator=generator, v0=v0, block_size=block_size,
+            inner_solver=inner_solver, inner_tol=inner_tol)
     theta = np.maximum(np.asarray(theta, dtype=np.float64), 0.0)
     order = np.argsort(theta)            # scipy returns s ascending
     s = np.sqrt(theta[order])
@@ -106,6 +115,38 @@ def svds(A, k=6, *, which="LM", sigma=None, tol=None, ncv=None,
     hist.phases = {**hist.phases, **clock.report()}
     out = (U, s, V.conj().T.contiguous())
     return out + (hist,) if return_history else out
+
+
+def _nearest_sigma(gram, k, sigma, *, ncv, tol, maxiter, dtype, generator,
+                   v0, block_size, inner_solver, inner_tol):
+    """``(theta, W, history)``: the k Gram eigenpairs whose square roots
+    are nearest ``|sigma|``, by shift-invert ``partial_eigh`` at
+    ``sigma**2`` on a buffered set (the JAX package's
+    ``arnoldi_tpu/solvers/svd.py:87-123``)."""
+    from .spectral_transform import (_note_history, _transform_back,
+                                     shift_invert_operator)
+
+    sig2 = float(np.real(sigma)) ** 2
+    itol = inner_tol if inner_tol is not None else tol * 1e-2
+    si = shift_invert_operator(gram, sig2, solver=inner_solver,
+                               inner_tol=itol, dtype=dtype)
+    kk = k + max(2, k // 2)
+    if ncv is not None:
+        kk = min(kk, ncv - 1)
+    kk = max(k, min(kk, gram.shape[0] - 1))
+    nu, W, hist = partial_eigh(
+        si, kk, which="LM", max_dim=ncv, stopping_criterion=tol,
+        max_restarts=maxiter, dtype=dtype, generator=generator, v0=v0,
+        block_size=block_size)
+    _note_history(hist)
+    theta = np.asarray(_transform_back(np.asarray(nu), sig2)).real
+    if kk > k:
+        sv_lin = np.sqrt(np.maximum(theta, 0.0))
+        pick = np.argsort(np.abs(sv_lin - abs(float(np.real(sigma)))),
+                          kind="stable")[:k]
+        theta = theta[pick]
+        W = W[:, torch.from_numpy(pick).to(W.device)]
+    return theta, W, hist
 
 
 def gram_companions(A_src, op):

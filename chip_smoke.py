@@ -12,7 +12,9 @@ nonzero before the last line is printed):
    shapes, in float32 and float64, and time both with CUDA events (the
    kernel also by the profiler's device time): the
    single-column kernels, the b = 8 column forms of DIA, ELL and both BSR
-   kernels, and BSR-8 on a matrix whose n is not a multiple of 8; compute
+   kernels, and BSR-8 on a matrix whose n is not a multiple of 8, the
+   fused CGS passes on gmres's (81, 2^20) basis (n_active 1, 40, 80) and
+   DIA on the pencil's one-band mass matrix (b = 1 and 5); compute
    each kernel's bound (bytes over 3.35 TB/s or flops over the fp64 rate,
    whichever is larger) and time the one PyTorch call that computes the same
    function (cuSPARSE through ``torch.sparse``, cuBLAS) as its yardstick;
@@ -105,13 +107,43 @@ nonzero before the last line is printed):
     float64), CUDA results, checked against ARPACK;
 25. ``svds`` of the phased reflected matrix (a complex Hermitian Gram
     operator; the adjoint leg is the conjugate-transposed ELL), checked
-    against ARPACK's ``svds`` and the triplets.
+    against ARPACK's ``svds`` and the triplets;
+26. solve X: ``eigsh(laplace_2d(724) as DIA, k=5, sigma=0.01, ncv=40,
+    inner_solver="cg")`` (``spmv_dia`` in every CG iteration; the outer
+    ``partial_eigh`` device loop with the fused CGS passes), checked
+    against the exact values nearest sigma; once more under the profiler;
+27. solve Y: ``eigs(the scattered 2^20 matrix as ELL, k=5, sigma=1.7,
+    inner_solver="bicgstab")``, checked against solve B's ARPACK values
+    (the five nearest 1.7);
+28. solve Z: the same at sigma=1.42 (interior, indefinite) with
+    ``inner_solver="gmres"`` (restart 80: an (81, 2^20) basis through the
+    fused CGS passes), checked against the five nearest 1.42 of ARPACK's
+    ten largest-real values (computed in the reference worker);
+29. ``svds`` of the reflected scattered matrix at sigma = 1.1 s_max (solve
+    O's ARPACK values), gmres on the shifted Gram operator (``spmv_ell`` on
+    A and the materialized A^T), checked against solve O's values and the
+    triplets;
+30. the pencil: ``eigsh(laplace_2d(724), k=5, M=diag(m), sigma=0.01,
+    inner_solver="cg")`` with m uniform on [0.5, 1.5] from seed 9 (DIA A
+    and M in every CG iteration, the outer ``partial_schur``), checked
+    against ARPACK's five values nearest sigma within 1e-9 (computed in the
+    reference worker on M^-1/2 A M^-1/2), by ``||Ax - lambda Mx||``,
+    ``diag(X^T M X) = 1`` within 1e-10 and its
+    off-diagonal within 1e-6 (``eigsh`` M-normalizes, as the JAX
+    package's does, and does not M-orthogonalize a close pair);
+31. splu: ``eigsh(laplace_2d(300), k=5, sigma=0.01, inner_solver="splu",
+    device="cuda")``: the LU and its solves on the host, the outer solve on
+    the card, checked against the exact values.
+Each of 26-31 prints its wall, outer matvecs, inner solves and matvecs
+(``InnerSolveStats``) and the kernels it launched.  Their residuals are
+taken against the spectrum's largest magnitude, not the small values a
+shift-invert solve finds (``PERF.md`` §2).
 
 Solves M, N and O run twice and must count the same matvecs both times;
-Q, R and T run once more under the profiler. The complex solves' ARPACK
-references run in one worker process (one BLAS thread) from the start of
-phase 1, so that they overlap the card's work; it is closed or terminated
-before the script ends.
+Q, R, T and X run once more under the profiler. The complex solves',
+solve Z's and the pencil's ARPACK references run in one worker process
+(one BLAS thread) from the start of phase 1, so that they overlap the
+card's work; it is closed or terminated before the script ends.
 The solves of phases 2-13 run in float64 to tol 1e-8. ``partial_schur``
 solves must give a Schur residual ``||AQ - QT|| / max|lambda| <= 1e-7`` and
 eigenvalues within 1e-9 of the reference; ``partial_eigh`` solves a
@@ -122,15 +154,17 @@ The kernels' launch counters are zeroed just before phase 2 and read after
 phase 13 (the main path), then zeroed before phase 14 and read after phase
 17 (the refinement, svds and callable paths), then zeroed before phase 19
 and read after phase 25 (the complex path, counted by dtype as well:
-``kernels.dtype_launch_counts()``); every kernel must have launched on
+``kernels.dtype_launch_counts()``), then zeroed before phase 26 and read
+after phase 31 (the shift-invert path); every kernel must have launched on
 the main path, ELL and both CGS2 kernels on the second, every complex form
 of DIA, ELL and the CGS2 pair in complex128 and ELL and the CGS2 pair in
-complex64 on the third, and each solve must have launched the kernels of
-its operator in its dtype. The line before
-the last is a JSON object with each kernel's route, source, launches,
-error, times, bound and library time (and a record of each complex form,
-named ``kernel:dtype``, whose launches are the complex path's); the last
-line is ``{"ok": true, "device": {...}}``. Needs no network and imports nothing of JAX.
+complex64 on the third, DIA, ELL and both CGS2 kernels on the fourth, and
+each solve must have launched the kernels of its operator in its dtype.
+The line before the last is a JSON object with each kernel's route,
+source, launches, error, times, bound and library time (and a record of
+each complex form, named ``kernel:dtype``, whose launches are the complex
+path's); the last line is ``{"ok": true, "device": {...}}``. Needs no
+network and imports nothing of JAX.
 """
 
 import contextlib
@@ -435,6 +469,45 @@ def phase_kernels(mats):
             if bool(got[3]) != bool(want[3]):
                 fail("cgs_dgks: breakdown flags differ")
         del Vt, Vs
+
+    # gmres's Gram-Schmidt (solves Z and the sigma svds) runs both passes on
+    # its (restart + 1, 2^20) basis; rows past n_active hold an earlier
+    # cycle's vectors, NaN here.  Descending n_active, so each NaN fill
+    # keeps the rows the next case reads.
+    dtype, n_g = torch.float64, mats["scattered"].shape[0]
+    Vt = torch.randn(mp1, n_g, generator=gen, device=dev, dtype=dtype) / np.sqrt(n_g)
+    w = torch.randn(n_g, generator=gen, device=dev, dtype=dtype)
+    for na in (80, 40, 1):
+        Vt[na:] = float("nan")
+        c = ortho_fused.masked_project(Vt, w, na)
+        c_plain = ortho_fused.masked_project_plain(Vt, w, na)
+        rec["masked_project"].check(
+            f"masked_project gmres basis (81, {n_g}) n_active={na}", dtype, c, c_plain)
+        if not bool((c[na:] == 0).all()):
+            fail("masked_project: nonzero coefficient past n_active (gmres basis)")
+        w2, ns = ortho_fused.project_update_norm(Vt, w, c_plain, na)
+        w2p, nsp = ortho_fused.project_update_norm_plain(Vt, w, c_plain, na)
+        rec["project_update_norm"].check(
+            f"project_update_norm gmres basis w' n_active={na}", dtype, w2, w2p)
+        rec["project_update_norm"].check(
+            f"project_update_norm gmres basis ||w'||^2 n_active={na}", dtype,
+            ns.reshape(1), nsp.reshape(1))
+    del Vt, w, w2, w2p
+
+    # The pencil's lumped mass matrix: one band (solve 30's M, inside every
+    # CG iteration, and its M-normalization's 5 columns).
+    mass = BandedOperator.from_scipy(mats["mass"], device=dev)
+    x = torch.randn(mass.shape[0], generator=gen, device=dev, dtype=torch.float64)
+    rec["spmv_dia"].check(
+        f"DIA lumped mass ({mass.bands.shape[0]}, {mass.shape[0]})", torch.float64,
+        spmv_banded.banded_matvec(mass.bands, x, mass.offsets),
+        spmv_banded.banded_matvec_plain(mass.bands, x, mass.offsets))
+    X5 = torch.randn(5, mass.shape[0], generator=gen, device=dev, dtype=torch.float64)
+    rec["spmv_dia_cols"].check(
+        f"DIA lumped mass ({mass.bands.shape[0]}, {mass.shape[0]}) b=5", torch.float64,
+        spmv_banded.banded_matmat(mass.bands, X5, mass.offsets),
+        spmv_banded.banded_matvec_plain(mass.bands, X5, mass.offsets))
+    del mass, x, X5
     sync()
     phase_kernels_cols_and_bsr(mats, rec, gen)
     sync()
@@ -1180,14 +1253,17 @@ def device_split(label, run):
         sync()
     wall = time.perf_counter() - t0
     by_name = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    # The raw trace: torch's FunctionEvent list (prof.events()) took 100 s
+    # to build for solve X's ~0.5M kernels on the card machine.
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CUDA:
+            by_name[ev.name()] = by_name.get(ev.name(), 0.0) + ev.duration_ns() / 1e6
     total = sum(by_name.values())
     busy = total / 1e3 / wall if wall else 0.0
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"  {label} under the profiler: wall {wall:.4f} s, device {total:.3f} ms "
-          f"(busy {100 * busy:.1f} %); by kernel (ms): "
+          f"(busy {100 * busy:.1f} %; reading the trace took "
+          f"{time.perf_counter() - t0 - wall:.2f} s); by kernel (ms): "
           + "; ".join(f"{short(name)} {ms:.3f}" for name, ms in top))
     return {"profiled_wall_s": wall, "device_ms": total, "busy": busy}
 
@@ -1263,6 +1339,7 @@ def phase_refine_svd(mats, counts, refs, device="cuda"):
     ref = np.sort(scipy_svds(A, 5, solver="arpack", tol=1e-10,
                              return_singular_vectors=False))
     print(f"  ARPACK svds (host, tol 1e-10) {time.perf_counter() - t0:.2f} s")
+    refs["O_svds"] = ref      # the sigma svds of phase 29 is held against it
     t0 = time.perf_counter()
     op = as_operator(A, dtype=torch.float64, device=device)
     companions = gram_companions(A, op)
@@ -1443,7 +1520,9 @@ def complex_reference(kind, n):
     """ARPACK's values for a complex solve at ``n`` rows, with the seconds
     it took: "R" the five largest-real eigenvalues of the phased scattered
     matrix, "T" the five largest of the Hermitian part of the phased
-    reflected one, "svds" the five largest singular values of the latter.
+    reflected one, "svds" the five largest singular values of the latter;
+    and, for solve Z, "Z" the ten largest-real eigenvalues of the (real)
+    scattered matrix.
     Run in a worker process (``start_references``): each builds its matrix
     from the seeds the solves use."""
     import numpy as np
@@ -1457,9 +1536,38 @@ def complex_reference(kind, n):
     elif kind == "T":
         ref = eigsh(hermitian_part(phased(reflected_scattered(n))), 5, which="LA",
                     tol=1e-8, ncv=40, return_eigenvectors=False)
+    elif kind == "Z":
+        ref = eigs(scattered_matrix(n), 10, which="LR", tol=1e-8, ncv=40,
+                   return_eigenvectors=False)
     else:
         ref = np.sort(scipy_svds(phased(reflected_scattered(n)), 5, solver="arpack",
                                  tol=1e-10, return_singular_vectors=False))
+    return ref, time.perf_counter() - t0
+
+
+def pencil_reference(side, sigma=0.01):
+    """The five eigenvalues of the pencil (``laplace_2d(side)``,
+    ``lumped_mass``) nearest ``sigma``, with the seconds it took: ARPACK
+    shift-invert on the equivalent standard problem ``M^-1/2 A M^-1/2`` (M
+    diagonal), its shifted matrix factorized by SuperLU in the
+    ``MMD_AT_PLUS_A`` ordering (the structure is symmetric).  Run in the
+    worker process (``start_references``)."""
+    import numpy as np
+    import scipy.sparse as sp
+    from scipy.sparse.linalg import LinearOperator, eigsh, splu
+
+    from arnoldi_tpu_torch import matrices
+
+    t0 = time.perf_counter()
+    A = matrices.laplace_2d(side)
+    n = A.shape[0]
+    D = sp.diags(1.0 / np.sqrt(lumped_mass(n).diagonal()))
+    C = (D @ A @ D).tocsc()
+    lu = splu((C - sigma * sp.identity(n, format="csc")).tocsc(),
+              permc_spec="MMD_AT_PLUS_A")
+    inv = LinearOperator((n, n), matvec=lu.solve, dtype=np.float64)
+    ref = np.sort(eigsh(C, 5, sigma=sigma, which="LM", OPinv=inv, tol=1e-12,
+                        return_eigenvectors=False))
     return ref, time.perf_counter() - t0
 
 
@@ -1468,8 +1576,9 @@ def _one_blas_thread():
         os.environ[var] = "1"
 
 
-def start_references(n):
-    """Start the complex solves' ARPACK references (``complex_reference``)
+def start_references(n, side):
+    """Start the complex solves' ARPACK references (``complex_reference``,
+    ``n`` rows) and the pencil's (``pencil_reference``, ``laplace_2d(side)``)
     in one worker process with one BLAS thread, so that they run on the
     host while phases 1-18 run on the card.  Returns ``(pool, {kind:
     async result})``; the caller closes the pool, or terminates it on a
@@ -1477,8 +1586,10 @@ def start_references(n):
     import multiprocessing
 
     pool = multiprocessing.get_context("spawn").Pool(1, initializer=_one_blas_thread)
-    return pool, {kind: pool.apply_async(complex_reference, (kind, n))
-                  for kind in ("R", "T", "svds")}
+    references = {kind: pool.apply_async(complex_reference, (kind, n))
+                  for kind in ("R", "T", "svds", "Z")}
+    references["pencil"] = pool.apply_async(pencil_reference, (side,))
+    return pool, references
 
 
 def reference(references, kind):
@@ -1907,6 +2018,268 @@ def phase_complex(mats, references, counts, dcounts, refs, device="cuda"):
     return rows, extra
 
 
+#: The kernels each shift-invert solve of phases 26-31 must launch.
+SHIFT_INVERT_KERNELS = {
+    "X": ("spmv_dia", "masked_project", "project_update_norm"),
+    "Y": ("spmv_ell", "masked_project", "project_update_norm"),
+    "Z": ("spmv_ell", "masked_project", "project_update_norm"),
+    "svds_sigma": ("spmv_ell", "masked_project", "project_update_norm"),
+    "pencil": ("spmv_dia", "masked_project", "project_update_norm"),
+    "splu": ("masked_project", "project_update_norm"),
+}
+
+
+def lumped_mass(n, seed=9):
+    """A diagonal mass matrix ``diag(m)``, m uniform on [0.5, 1.5] from
+    ``seed`` (a lumped finite-element mass matrix), as CSR."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    return sp.diags(np.random.default_rng(seed).uniform(0.5, 1.5, n)).tocsr()
+
+
+def transform_solve(label, run, counts):
+    """Run one ``eigs``/``eigsh``/``svds`` call (``run()``), print its
+    wall, outer matvecs, inner solves and matvecs, inner matvecs an outer
+    matvec and the kernels it launched, and fail unless it launched those
+    of ``SHIFT_INVERT_KERNELS[label]``.  Returns ``(out, hist, wall,
+    fields)``."""
+    import torch
+
+    from arnoldi_tpu_torch.solvers.spectral_transform import accounting
+
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    with accounting() as seen:
+        t0 = time.perf_counter()
+        out = run()
+        sync()
+        wall = time.perf_counter() - t0
+    after = counts()
+    hist, stats = seen["hist"][-1], seen["stats"][-1]
+    outer_mv = hist.total_matvecs
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    fields = {"outer_matvecs": outer_mv, "inner_solves": stats.solves,
+              "inner_matvecs": stats.inner_matvecs,
+              "inner_per_outer": stats.inner_matvecs / outer_mv,
+              "launches": launched}
+    print(f"  solve {label}: wall {wall:.4f} s, outer matvecs {outer_mv}, "
+          f"restarts {len(hist.residual_trace)}, inner solves {stats.solves}, "
+          f"inner matvecs {stats.inner_matvecs} "
+          f"({fields['inner_per_outer']:.1f} an outer matvec), peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"  kernels launched: {launched}")
+    check_launched(f"solve {label}", before, after, SHIFT_INVERT_KERNELS[label])
+    return out, hist, wall, fields
+
+
+def check_nearest(label, vals, exact, sigma, k, tol=1e-9):
+    """Hold values found nearest ``sigma`` against the exact spectrum: each
+    within ``tol`` of an exact eigenvalue, and every distinct value among
+    the k exact ones nearest sigma found (a scalar Krylov space may hold one
+    copy of a double eigenvalue)."""
+    import numpy as np
+
+    err = np.abs(exact[None, :] - vals[:, None]).min(axis=1).max()
+    want = exact[np.argsort(np.abs(exact - sigma), kind="stable")[:k]]
+    missed = np.abs(want[:, None] - vals[None, :]).min(axis=1).max()
+    print(f"  eigenvalues {np.sort(vals)}; the {k} exact nearest sigma "
+          f"{np.sort(want)}")
+    print(f"  eigenvalue error {err:.3e}, nearest-sigma set error {missed:.3e} "
+          f"(limits {tol:g})")
+    if not (err <= tol and missed <= tol):
+        fail(f"{label} disagrees with the exact values nearest sigma")
+
+
+def vector_residual(A, vals, V, scale, B=None, hermitian=True):
+    """``(res, norm_err, orth_err)``: ``max ||A v - lambda B v|| / (scale
+    ||B v||)`` (B = I when None), and for a Hermitian problem the largest
+    diagonal and off-diagonal errors of ``V^H B V = I`` (else None).
+    ``scale`` is the spectrum's largest magnitude: a shift-invert solve to
+    tol 1e-8 has vectors accurate to about tol in the transformed problem,
+    so its residual scales with ``||A||``, not with the small values it
+    finds (their ratio is printed too; ``PERF.md`` §2)."""
+    import numpy as np
+
+    Vh = host_array(V)
+    BV = Vh if B is None else B @ Vh
+    res = np.linalg.norm(A @ Vh - BV * vals[None, :], axis=0) / np.linalg.norm(BV, axis=0)
+    found = float(np.abs(vals).max())
+    norm_err = orth_err = None
+    line = (f"  residual / (max|lambda| |Bv|) {res.max() / scale:.3e} (limit 1e-7; "
+            f"max|lambda| {scale:.6g}); over the largest value found ({found:.6g}) "
+            f"{res.max() / found:.3e}")
+    if hermitian:
+        G = Vh.conj().T @ BV - np.eye(len(vals))
+        norm_err = float(np.abs(np.diag(G)).max())
+        orth_err = float(np.abs(G - np.diag(np.diag(G))).max())
+        line += f"; V^H B V - I: diagonal {norm_err:.3e}, off-diagonal {orth_err:.3e}"
+    print(line)
+    return res.max() / scale, norm_err, orth_err
+
+
+def phase_shift_invert(mats, references, counts, refs, device="cuda"):
+    """Phases 26-31, shift-invert: solves X (``eigsh`` sigma, cg over DIA),
+    Y (``eigs`` sigma, bicgstab over ELL), Z (``eigs`` at an interior
+    shift, gmres over ELL), the sigma ``svds`` (gmres over the Gram's two
+    ELL legs), the pencil (``eigsh`` with M, cg over DIA) and splu (the
+    host LU, the outer solve on the card), all float64 to tol 1e-8 (inner
+    tol 1e-10).  ``references``: the ARPACK references
+    (``start_references``), ``refs``: solve B's ARPACK values and solve O's
+    singular values.  X runs once more under the profiler.  Returns
+    ``([(label, history, wall), ...], {label: {summary field: value}})``."""
+    import numpy as np
+    import torch
+
+    from arnoldi_tpu_torch import as_operator, eigs, eigsh, matrices, svds
+    from arnoldi_tpu_torch.solvers.svd import gram_companions
+
+    rows, extra = [], {}
+    profiled = device_split if torch.device(device).type == "cuda" else (
+        lambda label, run: {})
+
+    t_phase = [time.perf_counter()]
+
+    def record(label, hist, wall, fields):
+        rows.append((label, hist, wall))
+        extra[label] = fields
+        now = time.perf_counter()
+        print(f"  phase wall {now - t_phase[0]:.2f} s (the solve, its checks "
+              "and the operator's build)")
+        t_phase[0] = now
+
+    A = mats["laplace"]
+    side = round(A.shape[0] ** 0.5)
+    exact = np.sort(matrices.laplace_2d_eigen(side))
+    scale = float(np.abs(exact).max())
+    print(f"phase 26: solve X, eigsh(laplace_2d({side}) as DIA, k=5, sigma=0.01, "
+          "LM, ncv=40, cg inner solves)")
+    op = as_operator(A, dtype=torch.float64, device=device)
+
+    def run_x():
+        return eigsh(op, 5, sigma=0.01, which="LM", ncv=40, tol=1e-8,
+                     inner_solver="cg")
+
+    (vals, V), hist, wall, fields = transform_solve("X", run_x, counts)
+    check_nearest("solve X", vals, exact, 0.01, 5)
+    res, norm_err, orth_err = vector_residual(A, vals, V, scale)
+    if not (res <= 1e-7 and max(norm_err, orth_err) <= 1e-10):
+        fail("solve X: residual or orthonormality out of bounds")
+    del V
+    fields.update(profiled("solve X", run_x))
+    record("X", hist, wall, fields)
+
+    S = mats["scattered"]
+    op = as_operator(S, dtype=torch.float64, device=device)
+    scale = float(np.abs(refs["B"]).max())
+    print("phase 27: solve Y, eigs(the scattered 2^20 matrix as ELL, k=5, "
+          "sigma=1.7, ncv=40, bicgstab inner solves)")
+    (vals, V), hist, wall, fields = transform_solve(
+        "Y", lambda: eigs(op, 5, sigma=1.7, ncv=40, tol=1e-8,
+                          inner_solver="bicgstab"), counts)
+    check_transformed("solve Y", S, vals, V, refs["B"], scale)
+    record("Y", hist, wall, fields)
+    del V
+
+    print("phase 28: solve Z, the same matrix, k=5, sigma=1.42 (interior, "
+          "indefinite), ncv=40, gmres inner solves (restart 80)")
+    (vals, V), hist, wall, fields = transform_solve(
+        "Z", lambda: eigs(op, 5, sigma=1.42, ncv=40, tol=1e-8,
+                          inner_solver="gmres"), counts)
+    ten = reference(references, "Z")
+    want = ten[np.argsort(np.abs(ten - 1.42), kind="stable")[:5]]
+    check_transformed("solve Z", S, vals, V, want, scale)
+    record("Z", hist, wall, fields)
+    del V, op
+
+    R = mats["reflect"]
+    ref = refs["O_svds"]
+    sigma = 1.1 * float(ref.max())
+    print(f"phase 29: svds of the reflected scattered matrix, k=5, sigma=1.1 "
+          f"s_max = {sigma:.6g}, ncv=40, gmres inner solves on the Gram")
+    op = as_operator(R, dtype=torch.float64, device=device)
+    companions = gram_companions(R, op)
+    (U, s, Vh, hist), _, wall, fields = transform_solve(
+        "svds_sigma", lambda: svds(op, 5, sigma=sigma, ncv=40, tol=1e-8,
+                                   companions=companions, return_history=True),
+        counts)
+    Uh, Vt = host_array(U), host_array(Vh).T
+    sv_err = float(np.abs(np.sort(s) - np.sort(ref)).max() / ref.max())
+    r_av = float(np.linalg.norm(R @ Vt - Uh * s, axis=0).max() / ref.max())
+    r_atu = float(np.linalg.norm(R.T @ Uh - Vt * s, axis=0).max() / ref.max())
+    orth = max(np.abs(Uh.T @ Uh - np.eye(5)).max(), np.abs(Vt.T @ Vt - np.eye(5)).max())
+    print(f"  singular values {s}; solve O's ARPACK {ref}")
+    print(f"  relative error {sv_err:.3e} (limit 1e-9); |Av - su| / s_max "
+          f"{r_av:.3e}, |A^T u - sv| / s_max {r_atu:.3e} (limits 1e-7); "
+          f"orthonormality {orth:.3e} (limit 1e-10)")
+    if not (sv_err <= 1e-9 and r_av <= 1e-7 and r_atu <= 1e-7 and orth <= 1e-10):
+        fail("the sigma svds disagrees with ARPACK's svds or its triplets are off")
+    record("svds_sigma", hist, wall, fields)
+    del U, Vh, op, companions
+
+    Mm = mats["mass"]
+    m = Mm.diagonal()
+    scale = float(np.abs(exact).max() / m.min())     # bounds the pencil's |lambda|
+    print(f"phase 30: the pencil, eigsh(laplace_2d({side}), k=5, M=diag(m), m "
+          "uniform on [0.5, 1.5] (seed 9), sigma=0.01, ncv=40, cg inner solves)")
+    op = as_operator(A, dtype=torch.float64, device=device)
+    (vals, X), hist, wall, fields = transform_solve(
+        "pencil", lambda: eigsh(op, 5, M=Mm, sigma=0.01, ncv=40, tol=1e-8,
+                                inner_solver="cg"), counts)
+    ref = reference(references, "pencil")
+    val_err = float(np.abs(np.sort(vals) - ref).max())
+    print(f"  eigenvalues {np.sort(vals)}; ARPACK on M^-1/2 A M^-1/2 {ref}; "
+          f"error {val_err:.3e} (limit 1e-9)")
+    if not val_err <= 1e-9:
+        fail("the pencil disagrees with ARPACK's values nearest sigma")
+    res, norm_err, orth_err = vector_residual(A, vals, X, scale, B=Mm)
+    # eigsh M-normalizes each vector, as the JAX package's does; it does not
+    # M-orthogonalize them, and the pair split from laplace's double
+    # eigenvalue by M lies 1.3e-7 apart: their M-inner product is
+    # tol-accurate, held to the 1e-6 of the JAX package's own pencil test
+    # (scripts/pencil_orthogonality.py reads both packages' on smaller
+    # pencils).
+    if not (res <= 1e-7 and norm_err <= 1e-10 and orth_err <= 1e-6
+            and not X.is_complex()):
+        fail("the pencil: residual or M-orthonormality out of bounds")
+    record("pencil", hist, wall, fields)
+    del X, op
+
+    L = mats["laplace300"]
+    side = round(L.shape[0] ** 0.5)
+    exact = np.sort(matrices.laplace_2d_eigen(side))
+    print(f"phase 31: splu, eigsh(laplace_2d({side}) as SciPy CSR, k=5, "
+          f"sigma=0.01, ncv=40, inner_solver='splu', device={device!r}): the LU "
+          "on the host")
+    (vals, V), hist, wall, fields = transform_solve(
+        "splu", lambda: eigsh(L, 5, sigma=0.01, ncv=40, tol=1e-8,
+                              inner_solver="splu", device=device), counts)
+    if V.device.type != torch.device(device).type:
+        fail(f"splu returned its vectors on {V.device}")
+    check_nearest("splu", vals, exact, 0.01, 5)
+    res, norm_err, orth_err = vector_residual(L, vals, V, float(np.abs(exact).max()))
+    if not (res <= 1e-7 and max(norm_err, orth_err) <= 1e-10):
+        fail("splu: residual or orthonormality out of bounds")
+    record("splu", hist, wall, fields)
+    return rows, extra
+
+
+def check_transformed(label, A, vals, V, want, scale):
+    """An ``eigs`` shift-invert solve against ARPACK's values (Hungarian
+    matching, 1e-9) and by its vectors' residual (1e-7 of ``scale``)."""
+    import numpy as np
+    from scipy.optimize import linear_sum_assignment
+
+    cost = np.abs(vals[:, None] - want[None, :])
+    ri, ci = linear_sum_assignment(cost)
+    match_err = float(cost[ri, ci].max())
+    print(f"  eigenvalues {np.sort_complex(vals)}; ARPACK {np.sort_complex(want)}; "
+          f"matched error {match_err:.3e} (limit 1e-9)")
+    res, _, _ = vector_residual(A, vals, V, scale, hermitian=False)
+    if not (match_err <= 1e-9 and res <= 1e-7):
+        fail(f"{label} disagrees with ARPACK or its residual is out of bounds")
+
+
 def main():
     import torch
 
@@ -1964,8 +2337,10 @@ def main():
     mats["phased_reflect"] = phased(mats["reflect"])
     mats["hermitian"] = hermitian_part(mats["phased_reflect"])
     mats["mark_phased"] = phased(matrices.mark(100))
+    mats["laplace300"] = matrices.laplace_2d(300)
+    mats["mass"] = lumped_mass(mats["laplace"].shape[0])
     print(f"  host matrices built in {time.perf_counter() - t0:.2f} s")
-    pool, references = start_references(2**20)
+    pool, references = start_references(2**20, 724)
     try:
         run_phases(mats, references, smi)
         pool.close()
@@ -1975,7 +2350,7 @@ def main():
 
 
 def run_phases(mats, references, smi):
-    """Phases 1-25 and the report (``main`` builds the matrices and starts
+    """Phases 1-31 and the report (``main`` builds the matrices and starts
     the complex solves' ARPACK references)."""
     import torch
 
@@ -2145,14 +2520,28 @@ def run_phases(mats, references, smi):
         fail(f"complex forms never launched on the complex path (phases 19-25): {idle}")
     print(f"launches on the complex path (phases 19-25): {complex_dtypes}")
 
+    # The shift-invert path, counted on its own.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    si_rows, si_extra = phase_shift_invert(mats, references, counts, refs)
+    si_wall = time.perf_counter() - t0
+    si_counts = counts()
+    idle = [k for k in ("spmv_dia", "spmv_ell", "masked_project",
+                        "project_update_norm") if si_counts[k] == 0]
+    if idle:
+        fail(f"kernels of phases 26-31 never launched there: {idle}")
+    print(f"launches on the shift-invert path (phases 26-31): {si_counts}")
+    print(f"phases 26-31 wall {si_wall:.2f} s")
+
     summary = {label: {"matvecs": h.total_matvecs, "restarts": len(h.residual_trace),
                        "wall_s": w, "ms_per_matvec": 1e3 * w / h.total_matvecs}
                for label, h, w in (("A", hist_a, wall_a), ("B", hist_b, wall_b),
                                    ("C", hist_c, wall_c), ("D", hist_d, wall_d),
                                    ("E", hist_e, wall_e), ("F", hist_f, wall_f),
                                    ("G", hist_g, wall_g), ("H", hist_h, wall_h),
-                                   *hermitian, *refined, *complex_rows)}
-    for label, fields in {**extra, **complex_extra}.items():
+                                   *hermitian, *refined, *complex_rows,
+                                   *si_rows)}
+    for label, fields in {**extra, **complex_extra, **si_extra}.items():
         summary[label].update(fields)
     print(f"solves: {json.dumps(summary)}")
     print(f"card: {smi}")
@@ -2166,7 +2555,8 @@ def run_phases(mats, references, smi):
          "library_dev_ms": rec[name].library_dev_ms,
          "launches_phases_14_17": refine_path[name], "dtypes": final_dtypes[name],
          "launches_phases_19_25": complex_counts[name],
-         "dtypes_phases_19_25": complex_dtypes[name]}
+         "dtypes_phases_19_25": complex_dtypes[name],
+         "launches_phases_26_31": si_counts[name]}
         for name, (_, source, replaces) in kernels.KERNELS.items()]}
     # The complex forms, each with its own record: "launches" counts the
     # complex path's launches in its dtype.

@@ -1,7 +1,8 @@
 """``arnoldi_tpu_torch`` imports and solves (``partial_schur`` scalar, block
 over BSR-8, on the host tier and refined from float32; ``partial_eigh`` on
 both loops and on the host tier; ``svds`` over a Gram with its adjoint
-leg) where JAX cannot be imported, a CPU solve never builds or loads
+leg; ``eigsh`` with a cg shift-invert inner solve and ``svds(sigma=)``)
+where JAX cannot be imported, a CPU solve never builds or loads
 the CUDA kernel library, and nothing is loaded from the JAX package's tree:
 no module and no shared library (the port's own host libraries build under
 ``build/arnoldi_tpu_torch/``)."""
@@ -49,6 +50,14 @@ assert Q.dtype == torch.float64
 res = max(res, np.linalg.norm(A @ Q.numpy() - Q.numpy() @ T.numpy(), axis=0).max())
 R = A[:, :40]
 U, s, Vh = arnoldi_tpu_torch.svds(R, 2, device="cpu")
+res = max(res, np.abs(R @ Vh.numpy().T - U.numpy() * s).max())
+from arnoldi_tpu_torch.solvers import inner, spectral_transform
+L = matrices.laplace(60).tocsr()
+vals, vecs = arnoldi_tpu_torch.eigsh(L, 3, sigma=-0.5, inner_solver="cg",
+                                     tol=1e-9, device="cpu")
+V = vecs.numpy()
+res = max(res, np.linalg.norm(L @ V - V * vals, axis=0).max())
+U, s, Vh = arnoldi_tpu_torch.svds(R, 2, sigma=0.5, tol=1e-9, device="cpu")
 res = max(res, np.abs(R @ Vh.numpy().T - U.numpy() * s).max())
 print(json.dumps({
     "residual": float(res),

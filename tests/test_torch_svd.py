@@ -1,6 +1,6 @@
 """The port's ``svds`` against the JAX package's and against LAPACK, on
-the cases of ``tests/test_svd_generalized.py::TestSvds`` that do not use
-``sigma``.
+the cases of ``tests/test_svd_generalized.py::TestSvds`` (``sigma`` is
+in ``tests/test_torch_svd_generalized.py``).
 
 Both packages get the same matrix and the same start vector.  The port's
 Gram runs a materialized adjoint leg (``gram_companions``), JAX's float64
@@ -112,9 +112,9 @@ def test_gram_companions():
 
 @pytest.mark.parametrize("kwargs,error", [
     (dict(which="XX"), ValueError),
-    (dict(sigma=1.0), NotImplementedError),
+    (dict(sigma=1.0, inner_solver="minres"), ValueError),
     (dict(v0=np.ones(7)), ValueError),
 ], ids=["which", "sigma", "v0"])
 def test_bad_arguments_raise(kwargs, error):
-    with pytest.raises(error, match="which|ROADMAP|v0"):
+    with pytest.raises(error, match="which|inner solver|v0"):
         svds(_gaussian((20, 20), 4), 2, device="cpu", **kwargs)
