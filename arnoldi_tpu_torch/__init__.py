@@ -9,10 +9,14 @@ plain PyTorch versions.  Small SciPy/NumPy problems run on the host tier
 (NumPy/BLAS or the C++ engine) and return their results on the device.
 """
 
+from ._version import __version__
 from .linop import (BandedOperator, BsrOperator, CallableOperator,
                     DenseOperator, EllOperator, GramOperator, LinearOperator,
                     as_operator, pad_operator, rmatmat, rmatvec)
 from .solvers.decomposition import RitzDecomposition, arnoldi_decomposition
+from .solvers.explicit_restarts import (explicit_restarts_with_deflation,
+                                        naive_explicit_restarts)
+from .solvers.filtered import eigsh_filtered, eigsh_window
 from .solvers.krylov_schur import eigenpairs_from_partial_schur, partial_schur
 from .solvers.lanczos import partial_eigh
 from .solvers.spectral_transform import (eigs, eigs_realified, eigsh,
@@ -20,6 +24,7 @@ from .solvers.spectral_transform import (eigs, eigs_realified, eigsh,
                                          realify_operator,
                                          shift_invert_operator)
 from .solvers.svd import gram_companions, svds
+from .utils.history import History
 
 __all__ = [
     "BandedOperator",
@@ -28,6 +33,7 @@ __all__ = [
     "DenseOperator",
     "EllOperator",
     "GramOperator",
+    "History",
     "LinearOperator",
     "RitzDecomposition",
     "arnoldi_decomposition",
@@ -36,7 +42,11 @@ __all__ = [
     "eigs",
     "eigs_realified",
     "eigsh",
+    "eigsh_filtered",
+    "eigsh_window",
+    "explicit_restarts_with_deflation",
     "generalized_operator",
+    "naive_explicit_restarts",
     "gram_companions",
     "pad_operator",
     "partial_eigh",
@@ -46,4 +56,5 @@ __all__ = [
     "rmatvec",
     "shift_invert_operator",
     "svds",
+    "__version__",
 ]

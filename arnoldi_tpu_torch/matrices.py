@@ -121,8 +121,8 @@ def laplace_3d(nx, ny=None, nz=None, dtype=None):
 
     The regime where shift-invert factorizations become infeasible
     (bandwidth ``nx*ny`` makes sparse-LU fill explode) — the target
-    workload for the JAX package's polynomial-filtered interior drivers
-    (``eigsh_filtered`` / ``eigsh_window``, not ported yet).
+    workload of the polynomial-filtered interior drivers
+    (``solvers/filtered.py``: ``eigsh_filtered`` / ``eigsh_window``).
     """
     ny = ny or nx
     nz = nz or nx

@@ -235,9 +235,9 @@ def partial_schur(
     if b < 1:
         raise ValueError(f"block_size must be positive, got {block_size}")
     if mesh is not None:
-        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 4")
+        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 2")
     if checkpoint_path is not None or resume:
-        raise _not_ported("checkpoint_path=/resume=", "Queue 1 item 5")
+        raise _not_ported("checkpoint_path=/resume=", "Queue 1 item 3")
     if lock not in ("soft", "hard"):
         raise ValueError(f"lock={lock!r}: expected 'soft' or 'hard'")
     refinement.check_refine(refine)

@@ -138,6 +138,34 @@ Each of 26-31 prints its wall, outer matvecs, inner solves and matvecs
 (``InnerSolveStats``) and the kernels it launched.  Their residuals are
 taken against the spectrum's largest magnitude, not the small values a
 shift-invert solve finds (``PERF.md`` §2).
+32. ``eigsh_window(laplace_3d(64), (-11.93, -11.89), tol=1e-8)`` (n =
+    262,144, DIA, float64): the KPM census, then one ``eigsh_filtered``
+    slice after another, each filter step one ``spmv_dia_cols`` launch at
+    b = the slice's s; every one of the 60 exact values inside the window
+    within 1e-9, ``||Av - lambda v|| / max(|lmin|, |lmax|) <= 1e-7``,
+    vectors orthonormal within 1e-10 inside a slice and, across slices,
+    ``|<v_i, v_j>| <= (||r_i|| + ||r_j||) / |lambda_i - lambda_j|`` (an
+    identity for a symmetric A; the JAX package's figures on its CPU tests
+    printed beside it); prints the wall, matvecs, sweeps, each slice's s
+    and degree, and the ``filter.*`` phases;
+33. ``eigsh_filtered(laplace_3d(48) as ELL, nev=10, (-11.80, -11.77),
+    tol=1e-8, dtype=float32)``: the float32 sweeps to 1e-5 or their stall
+    (``spmv_ell_cols`` in float32), then the float64 continuation on the
+    operator's float64 values (``spmv_ell_cols`` in float64); the 10 exact
+    values nearest the window's center (36 inside it) within 1e-9, the
+    same residual and orthonormality gates; each phase's matvecs printed;
+34. ``explicit_restarts_with_deflation`` (nev 5, max_dim 40, LR, tol
+    1e-10) on the scattered 2^20 matrix (ELL) against solve B's ARPACK
+    values within 1e-9 (relative), and ``naive_explicit_restarts`` (m 20)
+    against the largest of ARPACK's values of solve Z's reference, both
+    in complex128 with the real ELL kernel applied to the real and
+    imaginary parts as two columns; restarts and matvecs printed.
+After phase 34 (outside every counted window) ``spmv_dia_cols`` on
+laplace_3d(64) and ``spmv_ell_cols`` on laplace_3d(48) as ELL are held
+against their plain versions at the filter's widths (b = 32, 64, each
+slice's s and 8 x 37 + 3) in float64 and float32 and timed at b = s beside
+their bound and cuSPARSE's SpMM, and one sweep of phase 32's first slice
+runs under the profiler (device time by kernel family, busy share).
 
 Solves M, N and O run twice and must count the same matvecs both times;
 Q, R, T and X run once more under the profiler. The complex solves',
@@ -155,15 +183,21 @@ phase 13 (the main path), then zeroed before phase 14 and read after phase
 17 (the refinement, svds and callable paths), then zeroed before phase 19
 and read after phase 25 (the complex path, counted by dtype as well:
 ``kernels.dtype_launch_counts()``), then zeroed before phase 26 and read
-after phase 31 (the shift-invert path); every kernel must have launched on
-the main path, ELL and both CGS2 kernels on the second, every complex form
-of DIA, ELL and the CGS2 pair in complex128 and ELL and the CGS2 pair in
-complex64 on the third, DIA, ELL and both CGS2 kernels on the fourth, and
-each solve must have launched the kernels of its operator in its dtype.
+after phase 31 (the shift-invert path), then zeroed before phase 32 and
+read after phase 34 (the filtered and explicit-restart path, by dtype);
+every kernel must have launched on the main path, ELL and both CGS2
+kernels on the second, every complex form of DIA, ELL and the CGS2 pair in
+complex128 and ELL and the CGS2 pair in complex64 on the third, DIA, ELL
+and both CGS2 kernels on the fourth, ``spmv_dia_cols`` and ``spmv_dia`` in
+float64, ``spmv_ell_cols`` in float32 and float64, ``spmv_ell`` in float32
+and both CGS2 kernels on the fifth, and each solve must have launched the
+kernels of its operator in its dtype.
 The line before the last is a JSON object with each kernel's route,
 source, launches, error, times, bound and library time (and a record of
 each complex form, named ``kernel:dtype``, whose launches are the complex
-path's); the last line is ``{"ok": true, "device": {...}}``. Needs no
+path's, and of ``spmv_dia_cols`` and ``spmv_ell_cols`` at the filter's
+widths, named ``kernel:filter``, whose launches are phases 32-34's in its
+dtype); the last line is ``{"ok": true, "device": {...}}``. Needs no
 network and imports nothing of JAX.
 """
 
@@ -2280,6 +2314,362 @@ def check_transformed(label, A, vals, V, want, scale):
         fail(f"{label} disagrees with ARPACK or its residual is out of bounds")
 
 
+# The filtered and explicit-restart path (phases 32-34).
+FILTER_WINDOW_64 = (-11.93, -11.89)   # 60 values of laplace_3d_eigen(64)
+FILTER_WINDOW_48 = (-11.80, -11.77)   # 36 values of laplace_3d_eigen(48)
+FILTERED_KERNELS = {   # solve: {dtype: the kernels it must launch in it}
+    "32": {"float64": ("spmv_dia_cols", "spmv_dia", "masked_project",
+                       "project_update_norm")},
+    "33": {"float32": ("spmv_ell_cols", "spmv_ell", "masked_project",
+                       "project_update_norm"),
+           "float64": ("spmv_ell_cols",)},
+    "34": {"float64": ("spmv_ell_cols",),
+           "complex128": ("masked_project", "project_update_norm")},
+}
+#: The JAX package's eigsh_window on the CPU, tol 1e-8, max |V_i^T V_j|
+#: across slices (scripts/window_orthogonality.py): laplace(400) and
+#: laplace_3d(16), 3 slices each.
+JAX_ACROSS_SLICES = {"laplace(400)": 1.564e-13, "laplace_3d(16)": 8.543e-14}
+
+
+def filtered_solve(label, run, dcounts):
+    """Run one filtered or explicit-restart solve (``run()``), print its
+    wall and peak memory, and fail unless it launched the kernels of
+    ``FILTERED_KERNELS[label]`` in their dtypes.  Returns ``(out, wall)``."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    before = dcounts()
+    sync()
+    t0 = time.perf_counter()
+    out = run()
+    sync()
+    wall = time.perf_counter() - t0
+    after = dcounts()
+    launched = {k: {t: n - before[k].get(t, 0) for t, n in v.items()
+                    if n != before[k].get(t, 0)}
+                for k, v in after.items() if v != before[k]}
+    print(f"  solve {label}: wall {wall:.4f} s, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; kernels "
+          f"launched: {launched}")
+    for tag, names in FILTERED_KERNELS[label].items():
+        check_launched_dtype(f"solve {label}", before, after, names,
+                             getattr(torch, tag))
+    return out, wall
+
+
+def print_filter_history(hist):
+    """The geometry and phases of a filtered solve (``eigsh_window``'s
+    slices or ``eigsh_filtered``'s one)."""
+    slices = getattr(hist, "slices", None) or [hist.geometry]
+    print(f"  matvecs {hist.total_matvecs}, sweeps {int(hist.restarts.max())}, "
+          f"slices {len(slices)}")
+    for g in slices:
+        print(f"    slice [{g['interval'][0]:.6f}, {g['interval'][1]:.6f}]: s "
+              f"{g['s']}, degree {g['degree']}, sweeps {g['sweeps']} (float64 "
+              f"continuation {g['f64_sweeps']} sweeps, {g['f64_matvecs']} matvecs)")
+    print("  phases: " + "; ".join(f"{k} {v['seconds']:.3f} s x{v['calls']}"
+                                  for k, v in sorted(hist.phases.items())))
+
+
+def check_filtered(label, A, vals, V, want, scale, slices):
+    """Hold a filtered solve: every value within 1e-9 of ``want`` (the
+    exact values it must find, ascending), ``||Av - lambda v|| / scale <=
+    1e-7`` (``scale`` the enclosure's largest magnitude), the vectors
+    within each slice orthonormal within 1e-10, and across slices
+    ``|<v_i, v_j>| <= (||r_i|| + ||r_j||) / |lambda_i - lambda_j| + 1e-12``
+    (exact for a symmetric A, ``r`` the residuals).  Returns the largest
+    overlap across slices."""
+    import numpy as np
+
+    Vh = host_array(V)
+    if len(vals) != len(want):
+        fail(f"{label}: found {len(vals)} values, want {len(want)}")
+    err = float(np.abs(np.sort(vals) - want).max())
+    R = np.linalg.norm(A @ Vh - Vh * vals[None, :], axis=0)
+    G = np.abs(Vh.T @ Vh)
+    cuts = [g["interval"][0] for g in slices] + [slices[-1]["interval"][1]]
+    owner = np.searchsorted(np.asarray(cuts)[1:-1], vals, side="right")
+    within, across, excess = 0.0, 0.0, 0.0
+    for i in np.unique(owner):
+        mine = owner == i
+        within = max(within, float(np.abs(G[np.ix_(mine, mine)]
+                                          - np.eye(int(mine.sum()))).max()))
+        other = ~mine
+        if other.any():
+            gap = np.abs(vals[mine][:, None] - vals[other][None, :])
+            bound = (R[mine][:, None] + R[other][None, :]) / np.maximum(gap, 1e-300)
+            over = G[np.ix_(mine, other)]
+            across = max(across, float(over.max()))
+            excess = max(excess, float((over - bound - 1e-12).max()))
+    print(f"  eigenvalue error {err:.3e} (limit 1e-9); residual / {scale:.6g} "
+          f"{R.max() / scale:.3e} (limit 1e-7); within a slice |V^T V - I| "
+          f"{within:.3e} (limit 1e-10); across slices max |<v_i, v_j>| "
+          f"{across:.3e} (bound (|r_i| + |r_j|) / gap + 1e-12, exceeded by "
+          f"{max(excess, 0.0):.3e}; the JAX package's on the CPU tests: "
+          f"{JAX_ACROSS_SLICES})")
+    if not (err <= 1e-9 and R.max() / scale <= 1e-7 and within <= 1e-10
+            and excess <= 0.0):
+        fail(f"{label}: values, residual or orthogonality out of bounds")
+    return across
+
+
+def nearest(exact, window, k):
+    """The k exact values inside ``window`` nearest its center (a tie in
+    distance is either value)."""
+    import numpy as np
+
+    inside = exact[(exact >= window[0]) & (exact <= window[1])]
+    c = 0.5 * (window[0] + window[1])
+    return inside[np.argsort(np.abs(inside - c), kind="stable")[:k]]
+
+
+def phase_filtered(mats, references, dcounts, refs, device="cuda"):
+    """Phases 32-34: ``eigsh_window`` on laplace_3d(64) (DIA, float64),
+    ``eigsh_filtered`` nev 10 on laplace_3d(48) as ELL in float32 with its
+    float64 continuation, and both explicit-restart drivers on the
+    scattered 2^20 matrix (ELL; complex128 work, the real kernel on two
+    columns).  ``refs``: solve B's ARPACK values; ``references["Z"]``:
+    ARPACK's ten largest-real values.  Returns ``([(label, history, wall),
+    ...], {label: {summary field: value}}, {"dia": s of each phase-32
+    slice, "ell": phase 33's s, "geometry": phase 32's first slice's})``."""
+    import numpy as np
+    import torch
+
+    from arnoldi_tpu_torch import (as_operator, eigsh_filtered, eigsh_window,
+                                   explicit_restarts_with_deflation,
+                                   naive_explicit_restarts, matrices)
+
+    rows, extra = [], {}
+
+    g = round(mats["laplace3d64"].shape[0] ** (1 / 3))
+    print(f"phase 32: eigsh_window(laplace_3d({g}), {FILTER_WINDOW_64}, "
+          f"tol=1e-8), float64, DIA")
+    A = mats["laplace3d64"]
+    op = as_operator(A, dtype=torch.float64, device=device)
+    print(f"  operator {type(op).__name__} offsets {op.offsets}")
+    exact = np.sort(matrices.laplace_3d_eigen(g))
+    want = exact[(exact >= FILTER_WINDOW_64[0]) & (exact <= FILTER_WINDOW_64[1])]
+    print(f"  {want.size} exact values inside the window")
+    (vals, V, hist), wall = filtered_solve(
+        "32", lambda: eigsh_window(op, FILTER_WINDOW_64, tol=1e-8,
+                                   generator=torch.Generator().manual_seed(0)),
+        dcounts)
+    print_filter_history(hist)
+    lmin, lmax = hist.slices[0]["bounds"]
+    across = check_filtered("solve 32", A, vals, V, want,
+                            max(abs(lmin), abs(lmax)), hist.slices)
+    rows.append(("32", hist, wall))
+    extra["32"] = {"slices": [{k: g_[k] for k in ("interval", "s", "degree", "sweeps")}
+                              for g_ in hist.slices],
+                   "across_slices": across, "phases": hist.phases}
+    widths = {"dia": sorted({g_["s"] for g_ in hist.slices}),
+              "geometry": hist.slices[0]}
+    del V
+
+    g = round(mats["laplace3d48"].shape[0] ** (1 / 3))
+    print(f"phase 33: eigsh_filtered(laplace_3d({g}) as ELL, nev=10, "
+          f"{FILTER_WINDOW_48}, tol=1e-8), float32 with the float64 continuation")
+    A = mats["laplace3d48"]
+    op = as_operator(A, format="ell", device=device)     # float64 values
+    exact = np.sort(matrices.laplace_3d_eigen(g))
+    inside = exact[(exact >= FILTER_WINDOW_48[0]) & (exact <= FILTER_WINDOW_48[1])]
+    print(f"  operator {type(op).__name__} L={op.data.shape[1]}; {inside.size} "
+          "exact values inside the window")
+    (vals, V, hist), wall = filtered_solve(
+        "33", lambda: eigsh_filtered(op, 10, FILTER_WINDOW_48, tol=1e-8,
+                                     dtype=torch.float32,
+                                     generator=torch.Generator().manual_seed(1)),
+        dcounts)
+    print_filter_history(hist)
+    geo = hist.geometry
+    if V.dtype != torch.float64 or geo["f64_matvecs"] == 0:
+        fail("solve 33 did not continue in float64")
+    print(f"  matvecs: float32 phase {hist.total_matvecs - geo['f64_matvecs']}, "
+          f"float64 continuation {geo['f64_matvecs']}")
+    # the 10 nearest the center, by distance (a tie is either value)
+    want = nearest(exact, FILTER_WINDOW_48, 10)
+    c = 0.5 * sum(FILTER_WINDOW_48)
+    dist_err = float(np.abs(np.sort(np.abs(vals - c))
+                            - np.sort(np.abs(want - c))).max())
+    print(f"  distances to the center against the 10 exact nearest: error "
+          f"{dist_err:.3e} (limit 1e-9)")
+    if not dist_err <= 1e-9:
+        fail("solve 33 did not find the 10 values nearest the center")
+    lmin, lmax = geo["bounds"]
+    check_filtered("solve 33", A, vals, V,
+                   np.sort(inside[np.abs(inside[:, None] - vals[None, :]).argmin(axis=0)]),
+                   max(abs(lmin), abs(lmax)), [geo])
+    rows.append(("33", hist, wall))
+    extra["33"] = {"s": geo["s"], "degree": geo["degree"],
+                   "float32_matvecs": hist.total_matvecs - geo["f64_matvecs"],
+                   "float64_matvecs": geo["f64_matvecs"], "phases": hist.phases}
+    widths["ell"] = [geo["s"]]
+    del V
+
+    print("phase 34: explicit_restarts_with_deflation(the scattered 2^20 matrix "
+          "(ELL), nev=5, max_dim=40, LR, tol 1e-10) and naive_explicit_restarts "
+          "(m=20), complex128 work")
+    A = mats["scattered"]
+    op = as_operator(A, dtype=torch.float64, device=device)
+    (vals, V, hist), wall = filtered_solve(
+        "34", lambda: explicit_restarts_with_deflation(
+            op, 5, max_dim=40, stopping_criterion=1e-10, sort_function="LR",
+            generator=torch.Generator().manual_seed(2)), dcounts)
+    ref = np.sort_complex(refs["B"])
+    err = float(np.max(np.abs(np.sort_complex(vals) - ref) / np.abs(ref)))
+    Vh = host_array(V)
+    res = float((np.linalg.norm(A @ Vh - Vh * vals[None, :], axis=0)
+                 / np.abs(vals)).max())
+    print(f"  deflation: matvecs {hist.total_matvecs} (a slot {hist.matvecs.tolist()}), "
+          f"restarts {hist.restarts.tolist()}; eigenvalues {np.sort_complex(vals)}; "
+          f"against solve B's ARPACK values: relative error {err:.3e} (limit "
+          f"1e-9); residual / |lambda| {res:.3e} (limit 1e-7)")
+    if not (err <= 1e-9 and res <= 1e-7):
+        fail("solve 34 (deflation) disagrees with ARPACK")
+    rows.append(("34", hist, wall))
+    del V
+    before = dcounts()
+    sync()
+    t0 = time.perf_counter()
+    ritz, converged, n_restarts = naive_explicit_restarts(
+        op, 20, stopping_criterion=1e-10, max_restarts=100,
+        generator=torch.Generator().manual_seed(3))
+    sync()
+    wall_naive = time.perf_counter() - t0
+    products = (dcounts()["spmv_ell_cols"].get("float64", 0)
+                - before["spmv_ell_cols"].get("float64", 0))
+    top = reference(references, "Z")
+    lam = top[np.argmax(np.abs(top))]
+    err = abs(ritz.values[0] - lam) / abs(lam)
+    print(f"  naive: converged {converged} after {n_restarts} restarts, "
+          f"{products} products (Arnoldi steps and the true-residual checks' "
+          f"two columns a check), wall {wall_naive:.4f} s; value "
+          f"{ritz.values[0]:.12f} against ARPACK's largest {lam:.12f}: "
+          f"relative error {err:.3e} (limit 1e-9)")
+    if not (converged and err <= 1e-9):
+        fail("solve 34 (naive) disagrees with ARPACK")
+    extra["34"] = {"naive_restarts": n_restarts, "naive_products": products,
+                   "naive_wall_s": wall_naive}
+    return rows, extra, widths
+
+
+def filter_sweep_split(mats, geometry, device="cuda"):
+    """One filtered sweep of phase 32's first slice (its s, degree and
+    window, a random orthonormal block) under the profiler: device time by
+    kernel family (the DIA b-column kernel, torch's elementwise kernels, the
+    gemms, the rest) and the busy share of the profiled wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from arnoldi_tpu_torch import as_operator
+    from arnoldi_tpu_torch.ops.ortho import block_cgs2
+    from arnoldi_tpu_torch.solvers import filtered
+
+    op = as_operator(mats["laplace3d64"], dtype=torch.float64, device=device)
+    (a, b), (lmin, lmax) = geometry["interval"], geometry["bounds"]
+    s, degree = geometry["s"], geometry["degree"]
+    sin_eff = filtered._edge_sine(a, b, lmin, lmax)
+    delta = 2.5 * (lmax - lmin) * sin_eff / degree
+    coeffs = filtered.jackson_cheby_coeffs(max(a - delta, lmin), min(b + delta, lmax),
+                                           lmin, lmax, degree)
+    gen = torch.Generator(device=device).manual_seed(5)
+    X = torch.randn(s, op.shape[0], generator=gen, device=device, dtype=torch.float64)
+    X = block_cgs2(X, X, 0)[1]
+
+    def sweep():
+        return filtered._filter_rr_step(op, X, coeffs, lmin, lmax)
+
+    sweep()
+    sync()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sweep()
+        sync()
+    wall = time.perf_counter() - t0
+    family = {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        name = ev.name().lower()
+        key = ("spmv_dia_cols" if "spmv_dia" in name else
+               "elementwise" if "elementwise" in name or "vectorized" in name else
+               "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass", "sm90")) else
+               "other")
+        family[key] = family.get(key, 0.0) + ev.duration_ns() / 1e6
+    total = sum(family.values())
+    print(f"  one sweep at s={s}, degree={degree} (n={op.shape[0]}) under the "
+          f"profiler: wall {wall:.4f} s, device {total:.3f} ms (busy "
+          f"{100 * total / 1e3 / wall:.1f} %); by family (ms): "
+          + "; ".join(f"{k} {v:.3f} ({100 * v / total:.1f} %)"
+                      for k, v in sorted(family.items(), key=lambda kv: -kv[1])))
+    return {"s": s, "degree": degree, "profiled_wall_s": wall,
+            "device_ms": total, "busy": total / 1e3 / wall, "by_family_ms": family}
+
+
+FILTER_TAIL = 8 * 37 + 3     # an odd tail: 37 passes of 8 columns and one of 3
+
+
+def phase_filter_kernels(mats, widths, gen, device="cuda"):
+    """Phase 1 at the filter's widths (run after phase 34, at the widths
+    phases 32 and 33 took; the launches here are outside every counted
+    window): ``spmv_dia_cols`` on laplace_3d(64) and ``spmv_ell_cols`` on
+    laplace_3d(48) as ELL against their plain versions at b = 32, 64, each
+    slice's s and 8k + 3, in float64 and float32; timed (events and
+    profiler device time), bound (bands or nonzeros read once, X read and
+    Y written once) and cuSPARSE's SpMM at b = the g = 64 slice's s in
+    float64 (DIA) and at b = phase 33's s in float32 (ELL).  Returns
+    ``{record name: KernelRecord}``."""
+    import torch
+
+    from arnoldi_tpu_torch.linop import BandedOperator, EllOperator, cast_operator
+    from arnoldi_tpu_torch.ops.kernels import spmv_banded, spmv_ell
+
+    dev = torch.device(device)
+    cases = (   # record, matrix, format, the timed dtype, widths, label
+        ("spmv_dia_cols:filter", "laplace3d64", BandedOperator, torch.float64,
+         widths["dia"], "DIA laplace_3d(64)"),
+        ("spmv_ell_cols:filter", "laplace3d48", EllOperator, torch.float32,
+         widths["ell"], "ELL laplace_3d(48)"))
+    recs = {}
+    for name, key, fmt, timed, slice_widths, label in cases:
+        r = recs[name] = KernelRecord(timed)
+        op64 = fmt.from_scipy(mats[key], device=dev)
+        for dtype in (torch.float64, torch.float32):
+            op = cast_operator(op64, dtype)
+            if fmt is BandedOperator:
+                def plain(X):
+                    return spmv_banded.banded_matvec_plain(op.bands, X, op.offsets)
+
+                def nbytes(b):
+                    return (op.bands.numel() + 2 * b * op.shape[0]) * item
+            else:
+                def plain(X):
+                    return spmv_ell.ell_matvec_plain(op.data, op.cols, X)
+
+                def nbytes(b):
+                    return ell_bytes(op, b)
+            item = torch.empty((), dtype=dtype).element_size()
+            for b in sorted({32, 64, FILTER_TAIL, *slice_widths}):
+                X = torch.randn(b, op.shape[1], generator=gen, device=dev, dtype=dtype)
+                r.check(f"{label} {tuple(op.shape)} b={b}", dtype,
+                        op.matmat_rows(X), plain(X))
+                if b == max(slice_widths) and dtype == timed:
+                    r.time(lambda: op.matmat_rows(X), lambda: plain(X))
+                    r.set_bound(nbytes(b), 2 * op.nnz * b)
+                    A_csr, Xt = csr_tensor(mats[key], dtype, dev), X.T.contiguous()
+                    r.time_library(f"A_csr @ Xt (cuSPARSE SpMM, b={b})",
+                                   lambda: A_csr @ Xt, plain(X).T)
+                    del A_csr, Xt
+                del X
+        del op64, op
+    sync()
+    for name, r in recs.items():
+        print_time(name, r)
+    return recs
+
+
 def main():
     import torch
 
@@ -2339,6 +2729,8 @@ def main():
     mats["mark_phased"] = phased(matrices.mark(100))
     mats["laplace300"] = matrices.laplace_2d(300)
     mats["mass"] = lumped_mass(mats["laplace"].shape[0])
+    mats["laplace3d64"] = matrices.laplace_3d(64)
+    mats["laplace3d48"] = matrices.laplace_3d(48)
     print(f"  host matrices built in {time.perf_counter() - t0:.2f} s")
     pool, references = start_references(2**20, 724)
     try:
@@ -2350,7 +2742,7 @@ def main():
 
 
 def run_phases(mats, references, smi):
-    """Phases 1-31 and the report (``main`` builds the matrices and starts
+    """Phases 1-34 and the report (``main`` builds the matrices and starts
     the complex solves' ARPACK references)."""
     import torch
 
@@ -2533,6 +2925,29 @@ def run_phases(mats, references, smi):
     print(f"launches on the shift-invert path (phases 26-31): {si_counts}")
     print(f"phases 26-31 wall {si_wall:.2f} s")
 
+    # The filtered and explicit-restart path, counted on its own.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    f_rows, f_extra, widths = phase_filtered(mats, references,
+                                             kernels.dtype_launch_counts, refs)
+    f_wall = time.perf_counter() - t0
+    f_counts, f_dtypes = counts(), kernels.dtype_launch_counts()
+    idle = [f"{name}:{tag}" for name, tag in (
+        ("spmv_dia_cols", "float64"), ("spmv_ell_cols", "float32"),
+        ("spmv_ell_cols", "float64"), ("spmv_dia", "float64"),
+        ("spmv_ell", "float32"), ("masked_project", "float64"),
+        ("project_update_norm", "float64"))
+        if f_dtypes[name].get(tag, 0) == 0]
+    if idle:
+        fail(f"kernels of phases 32-34 never launched there: {idle}")
+    print(f"launches on the filtered and explicit-restart path (phases 32-34): "
+          f"{f_dtypes}")
+    print(f"phases 32-34 wall {f_wall:.2f} s")
+    print("phase 1 at the filter's widths (after phase 34, outside the counted "
+          "windows)")
+    frec = phase_filter_kernels(mats, widths, torch.Generator(device="cuda").manual_seed(4))
+    f_extra["32"]["sweep"] = filter_sweep_split(mats, widths["geometry"])
+
     summary = {label: {"matvecs": h.total_matvecs, "restarts": len(h.residual_trace),
                        "wall_s": w, "ms_per_matvec": 1e3 * w / h.total_matvecs}
                for label, h, w in (("A", hist_a, wall_a), ("B", hist_b, wall_b),
@@ -2540,8 +2955,9 @@ def run_phases(mats, references, smi):
                                    ("E", hist_e, wall_e), ("F", hist_f, wall_f),
                                    ("G", hist_g, wall_g), ("H", hist_h, wall_h),
                                    *hermitian, *refined, *complex_rows,
-                                   *si_rows)}
-    for label, fields in {**extra, **complex_extra, **si_extra}.items():
+                                   *si_rows, *f_rows)}
+    for label, fields in {**extra, **complex_extra, **si_extra,
+                          **f_extra}.items():
         summary[label].update(fields)
     print(f"solves: {json.dumps(summary)}")
     print(f"card: {smi}")
@@ -2556,7 +2972,9 @@ def run_phases(mats, references, smi):
          "launches_phases_14_17": refine_path[name], "dtypes": final_dtypes[name],
          "launches_phases_19_25": complex_counts[name],
          "dtypes_phases_19_25": complex_dtypes[name],
-         "launches_phases_26_31": si_counts[name]}
+         "launches_phases_26_31": si_counts[name],
+         "launches_phases_32_34": f_counts[name],
+         "dtypes_phases_32_34": f_dtypes[name]}
         for name, (_, source, replaces) in kernels.KERNELS.items()]}
     # The complex forms, each with its own record: "launches" counts the
     # complex path's launches in its dtype.
@@ -2568,6 +2986,16 @@ def run_phases(mats, references, smi):
          "bound_by": r.bound_by, "library_ms": r.library_ms, "dev_ms": r.dev_ms,
          "library_dev_ms": r.library_dev_ms, "library": r.library}
         for (name, tag), r in crec.items()]
+    # The b-column forms at the filter's widths (phases 32-33): "launches"
+    # counts phases 32-34's launches in the record's dtype.
+    report["kernels"] += [
+        {"name": name, "route": "cuda", "source": kernels.KERNELS[base][1],
+         "replaces": kernels.KERNELS[base][2], "dtype": str(r.dtype).removeprefix("torch."),
+         "launches": f_dtypes[base].get(str(r.dtype).removeprefix("torch."), 0),
+         "max_abs_err": r.max_abs_err, "ms": r.ms, "plain_ms": r.plain_ms,
+         "bound_ms": r.bound_ms, "bound_by": r.bound_by, "library_ms": r.library_ms,
+         "dev_ms": r.dev_ms, "library_dev_ms": r.library_dev_ms, "library": r.library}
+        for name, r in frec.items() for base in (name.split(":")[0],)]
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

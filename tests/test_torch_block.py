@@ -31,6 +31,7 @@ from arnoldi_tpu.solvers.decomposition import _block_expand_jit
 from arnoldi_tpu_torch import as_operator, partial_schur
 from arnoldi_tpu_torch.ops.ortho import block_cgs2
 from arnoldi_tpu_torch.solvers.decomposition import block_arnoldi_expand
+from arnoldi_tpu_torch.utils.sorting import sort_function_for
 from common import find_best_matching
 from torch_parity import (
     assert_quasi_triangular,
@@ -228,6 +229,20 @@ def _both(case, **kw):
     return A, ref, got
 
 
+def _multiple_eigenvalues(lam_ref, which, nev, scale):
+    """The wanted pairs in lock order (JAX's values sorted by ``which``)
+    grouped into runs of one eigenvalue: equal within 1e-8 of the
+    spectrum's scale."""
+    vals = lam_ref[np.asarray(sort_function_for(which)(lam_ref))][:nev]
+    groups = [[0]]
+    for i in range(1, nev):
+        if abs(vals[i] - vals[i - 1]) <= 1e-8 * scale:
+            groups[-1].append(i)
+        else:
+            groups.append([i])
+    return groups
+
+
 @pytest.mark.parametrize("case", sorted(BLOCK_CASES))
 def test_block_matches_jax_device_path(case):
     A, (Qj, Tj, hj), (Q, T, h) = _both(case, p=9 if case.endswith("p9") else None)
@@ -241,7 +256,17 @@ def test_block_matches_jax_device_path(case):
     assert_quasi_triangular(T)
     assert h.total_matvecs == hj.total_matvecs
     assert len(h.residual_trace) == len(hj.residual_trace)
-    np.testing.assert_array_equal(h.matvecs, hj.matvecs)
+    # A simple eigenvalue locks at JAX's matvec count.  The members of a
+    # multiple one lock in an order that rounding decides (how the first
+    # restarts split the eigenspace): the cluster's last lock is JAX's,
+    # and each member locks within one restart of JAX's.
+    _, nev, which, *_ = BLOCK_CASES[case]
+    for group in _multiple_eigenvalues(lam_ref, which, nev, scale):
+        if len(group) == 1:
+            assert h.matvecs[group[0]] == hj.matvecs[group[0]], group
+        else:
+            assert h.matvecs[group].max() == hj.matvecs[group].max(), group
+            assert np.abs(h.restarts[group] - hj.restarts[group]).max() <= 1
 
 
 def test_double_eigenvalue_found_twice():

@@ -1,7 +1,8 @@
 """``arnoldi_tpu_torch`` imports and solves (``partial_schur`` scalar, block
 over BSR-8, on the host tier and refined from float32; ``partial_eigh`` on
 both loops and on the host tier; ``svds`` over a Gram with its adjoint
-leg; ``eigsh`` with a cg shift-invert inner solve and ``svds(sigma=)``)
+leg; ``eigsh`` with a cg shift-invert inner solve and ``svds(sigma=)``;
+``eigsh_filtered``, ``eigsh_window`` and both explicit-restart drivers)
 where JAX cannot be imported, a CPU solve never builds or loads
 the CUDA kernel library, and nothing is loaded from the JAX package's tree:
 no module and no shared library (the port's own host libraries build under
@@ -59,6 +60,22 @@ V = vecs.numpy()
 res = max(res, np.linalg.norm(L @ V - V * vals, axis=0).max())
 U, s, Vh = arnoldi_tpu_torch.svds(R, 2, sigma=0.5, tol=1e-9, device="cpu")
 res = max(res, np.abs(R @ Vh.numpy().T - U.numpy() * s).max())
+from arnoldi_tpu_torch.solvers import explicit_restarts, filtered
+L = matrices.laplace(120).tocsr()
+for vals, vecs, _ in (
+        arnoldi_tpu_torch.eigsh_filtered(L, 3, (-2.1, -1.9), tol=1e-9,
+                                         device="cpu"),
+        arnoldi_tpu_torch.eigsh_window(L, (-2.1, -1.9), tol=1e-9,
+                                       device="cpu")):
+    V = vecs.numpy()
+    res = max(res, np.linalg.norm(L @ V - V * vals, axis=0).max())
+vals, vecs, _ = arnoldi_tpu_torch.explicit_restarts_with_deflation(
+    A, 2, stopping_criterion=1e-9, device="cpu")
+V = vecs.numpy()
+res = max(res, np.linalg.norm(A @ V - V * vals, axis=0).max())
+ritz, converged, _ = arnoldi_tpu_torch.naive_explicit_restarts(
+    A, stopping_criterion=1e-9, max_restarts=100, device="cpu")
+assert converged and arnoldi_tpu_torch.__version__
 print(json.dumps({
     "residual": float(res),
     "jax_modules": sorted(m for m, mod in sys.modules.items()
