@@ -116,17 +116,18 @@ __device__ __forceinline__ complex<R> ldcg(const complex<R>* p) {
     return {v.x, v.y};
 }
 
-// Warp shuffles over all 32 lanes; a complex value moves as its two halves,
-// which take the same lanes, so a tree sums both in the same order.
-__device__ __forceinline__ float shfl_down(float v, int off) {
-    return __shfl_down_sync(0xffffffffu, v, off);
+// Warp shuffles over all 32 lanes (shfl_down: within aligned groups of
+// `width` lanes); a complex value moves as its two halves, which take the
+// same lanes, so a tree sums both in the same order.
+__device__ __forceinline__ float shfl_down(float v, int off, int width = 32) {
+    return __shfl_down_sync(0xffffffffu, v, off, width);
 }
-__device__ __forceinline__ double shfl_down(double v, int off) {
-    return __shfl_down_sync(0xffffffffu, v, off);
+__device__ __forceinline__ double shfl_down(double v, int off, int width = 32) {
+    return __shfl_down_sync(0xffffffffu, v, off, width);
 }
 template <typename R>
-__device__ __forceinline__ complex<R> shfl_down(complex<R> v, int off) {
-    return {shfl_down(v.re, off), shfl_down(v.im, off)};
+__device__ __forceinline__ complex<R> shfl_down(complex<R> v, int off, int width = 32) {
+    return {shfl_down(v.re, off, width), shfl_down(v.im, off, width)};
 }
 
 __device__ __forceinline__ float shfl_xor(float v, int mask) {

@@ -114,6 +114,25 @@
 // window kernel's.  At b = 8 in f64: 0.148 ms on an NVIDIA H100 80GB HBM3,
 // 700.00 W (scripts/bsr_ab.py --matrix scattered), 512 threads (16 bytes of
 // spill; 384 threads, without spill, took 0.163).
+//
+// Complex forms (c64, c128): every kernel over arn::complex values, each
+// block value times x a fixed-order complex multiply-add (arn::fma_rn:
+// four FMAs, real part first) and each shuffle moving the two halves of a
+// value, so the sum trees, and the bit rules above, are the real ones.  The
+// product is blocks @ x with no conjugate (an adjoint is a materialized
+// conjugate transpose).  A complex128 value is one 16-byte unit: windows
+// and x segments stay 16-byte aligned (a complex64 column stride is when
+// n_cols is even, else the value-by-value copies run).  It takes twice a
+// float64 value's registers, so complex128 carries kCols = 4 columns a
+// pass in the general kernels and the 8 x 8 window kernel (Plan below),
+// and runs its multi-column 8 x 8 kernels at 256 threads: ptxas reports no
+// spill for them, nor for any window kernel (-Xptxas -v, printed by
+// chip_smoke.py phase 0).  The staged 8 x 8 gather kernel keeps 8 columns
+// (244 registers at 256 threads): 0.346 ms at b = 8 on the phased
+// scattered 2^20-row matrix, where 4 columns a pass (reading the blocks
+// twice) took 0.466 ms; the window kernel's 4 single-staged columns a pass
+// took 0.589 ms on banded-1024, 2 double-staged ones 0.934 ms
+// (scripts/bsr_ab.py --dtype complex128; NVIDIA H100 80GB HBM3, 700.00 W).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -124,9 +143,26 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 8;                  // columns a warp keeps in registers
 constexpr int kMaxSmem = 232448;          // 227 KB, one block's dynamic limit
 constexpr int kBarBytes = 16;             // the 8x8 window kernel's two mbarriers
+constexpr int kGatherCols = 8;            // the staged 8x8 gather kernel's columns a pass
+
+// Launch shapes by value type.  kCols: columns a warp keeps in registers
+// in the general kernels, and the most the window kernels stage a pass
+// (ops/kernels/spmv_bsr.py, cols_per_pass); the staged 8 x 8 gather
+// kernel's threads; the 8 x 8 window kernel's blocks an SM for one column
+// (256 threads), and its threads for several (4 columns a group).
+template <typename T>
+struct Plan {
+    static constexpr int kCols = 8, kGatherThreads = 512;
+    static constexpr int kOneBlocks = 3, kManyThreads = 512;
+};
+
+template <>
+struct Plan<arn::c128> {
+    static constexpr int kCols = 4, kGatherThreads = 256;
+    static constexpr int kOneBlocks = 2, kManyThreads = 256;
+};
 
 // The contraction of one block-row, x read through `load(j, block_col)`;
 // returns nothing, writes the row's outputs.  Every lane of the warp must
@@ -164,7 +200,7 @@ __device__ __forceinline__ void block_row(
                     if (j < cnt) {
                         const T xv = load(j, static_cast<long long>(bc) * c + cc);
 #pragma unroll
-                        for (int k = 0; k < K; ++k) acc[j][k] += bv[k] * xv;
+                        for (int k = 0; k < K; ++k) acc[j][k] = arn::madd(acc[j][k], bv[k], xv);
                     }
                 }
             }
@@ -176,7 +212,7 @@ __device__ __forceinline__ void block_row(
 #pragma unroll
         for (int k = 0; k < K; ++k)
             for (int off = c >> 1; off > 0; off >>= 1)
-                acc[j][k] += __shfl_down_sync(0xffffffffu, acc[j][k], off, c);
+                acc[j][k] += arn::shfl_down(acc[j][k], off, c);
     if (!live || cc != 0) return;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
@@ -207,8 +243,10 @@ spmv_bsr_kernel(const T* __restrict__ blocks, const int* __restrict__ cols,
                         cnt, load);
 }
 
+// Minimum one block an SM: with the thread count alone ptxas held some
+// instantiations (complex128 among them) to 32-64 registers and spilled.
 template <typename T, int K, int NB>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 spmv_bsr_window_kernel(const T* __restrict__ blocks, const int* __restrict__ wcols,
                        const int* __restrict__ tile_base, const T* __restrict__ x,
                        T* __restrict__ y, long long n_brow, int L, int r, int c,
@@ -244,9 +282,6 @@ spmv_bsr_window_kernel(const T* __restrict__ blocks, const int* __restrict__ wco
 }
 
 // ---- The 8 x 8 window kernel --------------------------------------------
-
-__device__ __forceinline__ float fma_rn(float a, float b, float c) { return __fmaf_rn(a, b, c); }
-__device__ __forceinline__ double fma_rn(double a, double b, double c) { return __fma_rn(a, b, c); }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
     return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -317,11 +352,11 @@ __device__ __forceinline__ void reduce_write(const T (&p)[G][4], int q, int rq,
 #pragma unroll
     for (int j = 0; j < G; ++j) {
         const T top = p[j][0] + p[j][1], bottom = p[j][2] + p[j][3];
-        v1[j] = (hi1 ? bottom : top) + __shfl_xor_sync(0xffffffffu, hi1 ? top : bottom, 2);
+        v1[j] = (hi1 ? bottom : top) + arn::shfl_xor(hi1 ? top : bottom, 2);
     }
     const long long row = brow * 8 + rq + (hi1 ? 4 : 0);
     if (G == 1) {
-        const T sum = v1[0] + __shfl_xor_sync(0xffffffffu, v1[0], 1);
+        const T sum = v1[0] + arn::shfl_xor(v1[0], 1);
         if (live && (q & 1) == 0 && row < n_rows) y[row] = sum;
         return;
     }
@@ -330,7 +365,7 @@ __device__ __forceinline__ void reduce_write(const T (&p)[G][4], int q, int rq,
 #pragma unroll
     for (int k = 0; k < H; ++k) {
         const T keep = hi2 ? v1[H + k] : v1[k], give = hi2 ? v1[k] : v1[H + k];
-        const T sum = keep + __shfl_xor_sync(0xffffffffu, give, 1);
+        const T sum = keep + arn::shfl_xor(give, 1);
         const int j = (hi2 ? H : 0) + k;
         if (live && j < cnt && row < n_rows) y[j * n_rows + row] = sum;
     }
@@ -452,7 +487,7 @@ spmv_bsr_window8_kernel(const T* __restrict__ blocks, const int* __restrict__ wc
                 const T* blk = blocks + slot * 64 + e0;
 #pragma unroll
                 for (int e = 0; e < 4; ++e)
-                    bv[u][e] = ok ? __ldcs(blk + (e & 1) * 4 + (e >> 1) * 32) : T(0);
+                    bv[u][e] = ok ? arn::ldcs(blk + (e & 1) * 4 + (e >> 1) * 32) : T(0);
             }
         };
         if (vec) mbar_wait(bar + s, (stages == 2 ? k >> 1 : k) & 1);   // the bulk copies
@@ -471,10 +506,10 @@ spmv_bsr_window8_kernel(const T* __restrict__ blocks, const int* __restrict__ wc
                         if (g0 + j < cnt) {
                             const T* xj = xs + (g0 + j) * CW + off[u];
                             const T x_q = xj[0], x_q4 = xj[4];
-                            p[j][0] = fma_rn(bv[u][0], x_q, p[j][0]);
-                            p[j][1] = fma_rn(bv[u][1], x_q4, p[j][1]);
-                            p[j][2] = fma_rn(bv[u][2], x_q, p[j][2]);
-                            p[j][3] = fma_rn(bv[u][3], x_q4, p[j][3]);
+                            p[j][0] = arn::fma_rn(bv[u][0], x_q, p[j][0]);
+                            p[j][1] = arn::fma_rn(bv[u][1], x_q4, p[j][1]);
+                            p[j][2] = arn::fma_rn(bv[u][2], x_q, p[j][2]);
+                            p[j][3] = arn::fma_rn(bv[u][3], x_q4, p[j][3]);
                         }
                     }
                 }
@@ -629,7 +664,7 @@ spmv_bsr_gather8_kernel(const T* __restrict__ blocks, const int* __restrict__ co
             const T* blk = blocks + (brow * L + l0 + u) * 64 + e0;
 #pragma unroll
             for (int e = 0; e < 4; ++e)
-                bv[u][e] = ok ? __ldcs(blk + (e & 1) * 4 + (e >> 1) * 32) : T(0);
+                bv[u][e] = ok ? arn::ldcs(blk + (e & 1) * 4 + (e >> 1) * 32) : T(0);
         }
         load_ids(pair_next, r_next, nid);
         cp_async_wait_all();
@@ -642,10 +677,10 @@ spmv_bsr_gather8_kernel(const T* __restrict__ blocks, const int* __restrict__ co
                 if (j < cnt) {
                     const T* xu = xs + (u * G + j) * 8 + q;
                     const T x_q = xu[0], x_q4 = xu[4];
-                    p[j][0] = fma_rn(bv[u][0], x_q, p[j][0]);
-                    p[j][1] = fma_rn(bv[u][1], x_q4, p[j][1]);
-                    p[j][2] = fma_rn(bv[u][2], x_q, p[j][2]);
-                    p[j][3] = fma_rn(bv[u][3], x_q4, p[j][3]);
+                    p[j][0] = arn::fma_rn(bv[u][0], x_q, p[j][0]);
+                    p[j][1] = arn::fma_rn(bv[u][1], x_q4, p[j][1]);
+                    p[j][2] = arn::fma_rn(bv[u][2], x_q, p[j][2]);
+                    p[j][3] = arn::fma_rn(bv[u][3], x_q4, p[j][3]);
                 }
             }
         }
@@ -711,11 +746,14 @@ template <typename T>
 int launch_window8(const T* blocks, const int* wcols, const int* tile_base, const T* x,
                    T* y, long long n_brow, int L, long long n_rows, long long n_cols,
                    int nb, int tile_brows, int Wt, int per_pass, cudaStream_t s) {
+    using P = Plan<T>;
     if (per_pass == 1)
-        return launch_window8_n<T, 1, 256, 3>(blocks, wcols, tile_base, x, y, n_brow, L,
-                                              n_rows, n_cols, nb, tile_brows, Wt, 1, s);
-    return launch_window8_n<T, 4, 512, 1>(blocks, wcols, tile_base, x, y, n_brow, L, n_rows,
-                                          n_cols, nb, tile_brows, Wt, per_pass, s);
+        return launch_window8_n<T, 1, 256, P::kOneBlocks>(
+            blocks, wcols, tile_base, x, y, n_brow, L, n_rows, n_cols, nb, tile_brows, Wt,
+            1, s);
+    return launch_window8_n<T, 4, P::kManyThreads, 1>(blocks, wcols, tile_base, x, y, n_brow,
+                                                      L, n_rows, n_cols, nb, tile_brows, Wt,
+                                                      per_pass, s);
 }
 
 bool valid_block(int r, int c) {
@@ -767,6 +805,7 @@ int launch_gather_k(const T* blocks, const int* cols, const T* x, T* y,
         spmv_bsr_kernel<T, K, 1><<<dim3(blocks_x, 1), kThreads, 0, s>>>(
             blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, 1);
     } else {
+        constexpr int kCols = Plan<T>::kCols;
         const unsigned chunks = static_cast<unsigned>((nb + kCols - 1) / kCols);
         spmv_bsr_kernel<T, K, kCols><<<dim3(blocks_x, chunks), kThreads, 0, s>>>(
             blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb);
@@ -785,8 +824,8 @@ int launch_gather(const T* blocks, const int* cols, const T* x, T* y,
     // 8 x 8 blocks at b >= 2 take the staged gather kernel; every other
     // shape, and every single column, the first gather kernel.
     if (r == 8 && c == 8 && nb >= 2)
-        return launch_gather8_n<T, kCols, 512, 1>(blocks, cols, x, y, n_brow, L, n_rows,
-                                                  n_cols, nb, s);
+        return launch_gather8_n<T, kGatherCols, Plan<T>::kGatherThreads, 1>(
+            blocks, cols, x, y, n_brow, L, n_rows, n_cols, nb, s);
     switch (k_of(r, c)) {
         case 1: return launch_gather_k<T, 1>(blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb, s);
         case 2: return launch_gather_k<T, 2>(blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb, s);
@@ -823,7 +862,7 @@ int launch_window_k(const T* blocks, const int* wcols, const int* tile_base,
     if (per_pass == 1)
         return launch_window_kn<T, K, 1>(blocks, wcols, tile_base, x, y, n_brow, L, r, c,
                                          n_rows, n_cols, nb, tile_brows, Wt, 1, s);
-    return launch_window_kn<T, K, kCols>(blocks, wcols, tile_base, x, y, n_brow, L, r, c,
+    return launch_window_kn<T, K, Plan<T>::kCols>(blocks, wcols, tile_base, x, y, n_brow, L, r, c,
                                          n_rows, n_cols, nb, tile_brows, Wt, per_pass, s);
 }
 
@@ -840,7 +879,7 @@ int launch_window(const T* blocks, const int* wcols, const int* tile_base,
         ? static_cast<long long>(per_pass) * (Wt + 1) * c * sizeof(T) + kBarBytes
         : static_cast<long long>(per_pass) * Wt * c * sizeof(T);
     if (n_brow < 0 || L < 1 || nb < 1 || !valid_block(r, c) || tile_brows < 1
-        || Wt < 1 || per_pass < 1 || per_pass > kCols || smem > kMaxSmem)
+        || Wt < 1 || per_pass < 1 || per_pass > Plan<T>::kCols || smem > kMaxSmem)
         return static_cast<int>(cudaErrorInvalidValue);
     if (n_brow == 0 || n_rows == 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
@@ -885,4 +924,37 @@ extern "C" int arn_spmv_bsr_window_f64(const double* blocks, const int* wcols,
                                        int tile_brows, int Wt, int per_pass, void* stream) {
     return launch_window<double>(blocks, wcols, tile_base, x, y, n_brow, L, r, c, n_rows,
                                  n_cols, nb, tile_brows, Wt, per_pass, stream);
+}
+
+extern "C" int arn_spmv_bsr_c64(const arn::c64* blocks, const int* cols, const arn::c64* x,
+                                arn::c64* y, long long n_brow, int L, int r, int c,
+                                long long n_rows, long long n_cols, int nb, void* stream) {
+    return launch_gather<arn::c64>(blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb,
+                                   stream);
+}
+
+extern "C" int arn_spmv_bsr_c128(const arn::c128* blocks, const int* cols,
+                                 const arn::c128* x, arn::c128* y, long long n_brow, int L,
+                                 int r, int c, long long n_rows, long long n_cols, int nb,
+                                 void* stream) {
+    return launch_gather<arn::c128>(blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb,
+                                    stream);
+}
+
+extern "C" int arn_spmv_bsr_window_c64(const arn::c64* blocks, const int* wcols,
+                                       const int* tile_base, const arn::c64* x, arn::c64* y,
+                                       long long n_brow, int L, int r, int c,
+                                       long long n_rows, long long n_cols, int nb,
+                                       int tile_brows, int Wt, int per_pass, void* stream) {
+    return launch_window<arn::c64>(blocks, wcols, tile_base, x, y, n_brow, L, r, c, n_rows,
+                                   n_cols, nb, tile_brows, Wt, per_pass, stream);
+}
+
+extern "C" int arn_spmv_bsr_window_c128(const arn::c128* blocks, const int* wcols,
+                                        const int* tile_base, const arn::c128* x,
+                                        arn::c128* y, long long n_brow, int L, int r, int c,
+                                        long long n_rows, long long n_cols, int nb,
+                                        int tile_brows, int Wt, int per_pass, void* stream) {
+    return launch_window<arn::c128>(blocks, wcols, tile_base, x, y, n_brow, L, r, c, n_rows,
+                                    n_cols, nb, tile_brows, Wt, per_pass, stream);
 }

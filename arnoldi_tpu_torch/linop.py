@@ -23,8 +23,8 @@ kernels' b-column forms read and write without a transpose.
 :func:`rmatvec` and :func:`rmatmat` apply the adjoint of a format
 operator; :func:`pad_operator` pads one to ``diag(A, 0)``.
 
-Values may be float32, float64, complex64 or complex128 (a complex BSR
-operator is not ported yet and raises).  The format operators are frozen
+Values may be float32, float64, complex64 or complex128, in every format.
+The format operators are frozen
 dataclasses holding tensors on one explicit device.  There is no
 ``backend=`` field: a CUDA tensor always goes through the kernel, a CPU
 tensor through its plain PyTorch version.  The
@@ -68,14 +68,6 @@ def _check_padded_layout(kind, padded_elems, stored_elems, L, degrees):
 def _not_ported(what, item):
     return NotImplementedError(
         f"{what} is not ported to arnoldi_tpu_torch yet (ROADMAP.md, {item})")
-
-
-def _refuse_complex_bsr(dtype):
-    """A complex BSR operator raises on every device: its kernels are real
-    only, and the CPU's plain version must not run what the card refuses."""
-    if np.issubdtype(numpy_dtype(dtype) if isinstance(dtype, torch.dtype)
-                     else np.dtype(dtype), np.complexfloating):
-        raise _not_ported("a complex BSR operator", "Queue 1 item 1")
 
 
 def _require_device(device, what):
@@ -296,9 +288,6 @@ class BsrOperator:
     _cache: dict = dataclasses.field(default_factory=dict, init=False,
                                      repr=False, compare=False)
 
-    def __post_init__(self):
-        _refuse_complex_bsr(self.blocks.dtype)
-
     @property
     def shape(self):
         return (self.n_rows, self.n_cols)
@@ -351,8 +340,6 @@ class BsrOperator:
         import scipy.sparse as sp
 
         device = _require_device(device, "BsrOperator.from_scipy")
-        # before any copy to the device
-        _refuse_complex_bsr(A.dtype if dtype is None else torch_dtype(dtype))
         r, c = blocksize
         n_rows, n_cols_true = A.shape
         pad_r = -(-n_rows // r) * r

@@ -11,7 +11,7 @@ compiled, so the build takes seconds.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a nonzero code into an error.
 Entry points are named ``<kernel>_<suffix>`` by operand dtype: ``f32``,
-``f64``, and for every kernel but the two BSR ones ``c64`` and ``c128``.
+``f64``, ``c64`` and ``c128``.
 """
 
 import ctypes
@@ -33,7 +33,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: Operand dtypes of the kernels and the suffix of their entry points.
 SUFFIXES = {torch.float32: "f32", torch.float64: "f64",
             torch.complex64: "c64", torch.complex128: "c128"}
-REAL_DTYPES = (torch.float32, torch.float64)
 
 _lock = threading.Lock()
 _lib = None
@@ -58,9 +57,6 @@ _SIGNATURES = {
     # Vt, w, c, w_out, partials, norm_sq, n, n_active, n_blocks, stream
     "arn_project_update_norm": [_p, _p, _p, _p, _p, _p, _i64, _i32, _i32, _p],
 }
-#: Kernels with float32/float64 forms only (a complex BSR operator is not
-#: ported).
-_REAL_ONLY = ("arn_spmv_bsr", "arn_spmv_bsr_window")
 
 
 def _sources():
@@ -140,8 +136,7 @@ def library():
             _build_locked()
             lib = ctypes.CDLL(str(LIB_PATH))
             for name, argtypes in _SIGNATURES.items():
-                dtypes = REAL_DTYPES if name in _REAL_ONLY else SUFFIXES
-                for suffix in (SUFFIXES[d] for d in dtypes):
+                for suffix in SUFFIXES.values():
                     fn = getattr(lib, f"{name}_{suffix}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int

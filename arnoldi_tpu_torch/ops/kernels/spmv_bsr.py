@@ -21,7 +21,11 @@ On CUDA tensors the wrappers launch ``csrc/spmv_bsr.cu``; on CPU tensors
 they run :func:`bsr_matvec_plain` and :func:`bsr_window_matvec_plain`.  The
 kernels take blocks whose column count ``c`` divides 32 and with at most
 256 values (8 x 8 is the format's use); other block shapes raise on the
-card.
+card.  Values may be float32, float64, complex64 or complex128; the product
+is ``blocks @ x`` with no conjugate in every dtype.  In complex128 the
+window kernel and the general gather kernel carry :func:`cols_per_pass` =
+4 columns a pass (the others 8), so that their sums fit the registers; the
+staged 8 x 8 gather kernel keeps 8 in every dtype.
 """
 
 import dataclasses
@@ -39,8 +43,9 @@ WINDOW_TILE_BROWS = 128
 WINDOW_BUDGET_BYTES = 64 * 1024
 #: Dynamic shared memory one thread block may use on sm_90 (227 KB).
 MAX_SHARED_BYTES = 232448
-#: Columns a warp keeps in registers in the b-column forms (kCols in the
-#: CUDA source); the window kernel stages at most this many per pass.
+#: Columns a warp keeps in registers in the b-column forms (Plan::kCols in
+#: the CUDA source); the window kernel stages at most this many per pass.
+#: Complex128 takes half as many (:func:`cols_per_pass`).
 MAX_COLS_PER_PASS = 8
 #: Shared memory the window kernel keeps beside its stages (two mbarriers).
 _BARRIER_BYTES = 16
@@ -69,7 +74,9 @@ class BsrWindow:
     def fits(self, c, dtype):
         """True when one column's window of ``c``-wide block-columns in
         ``dtype`` fits :data:`WINDOW_BUDGET_BYTES`: the rule that picks the
-        window kernel over the gather kernel."""
+        window kernel over the gather kernel.  It counts bytes, so a
+        complex128 window takes half the block-columns a float64 one may
+        (512 at c = 8)."""
         return self.width * c * dtype.itemsize <= WINDOW_BUDGET_BYTES
 
 
@@ -113,14 +120,23 @@ def bsr_window(blocks, block_cols, *, device, tile_brows=WINDOW_TILE_BROWS):
                      torch.from_numpy(tile_base).to(device), Wt, tile_brows)
 
 
-def window_cols_per_pass(nb, col_bytes):
+def cols_per_pass(dtype):
+    """Columns the window kernel stages a pass at most, and the general
+    gather kernel keeps in registers, by value dtype: :data:`MAX_COLS_PER_PASS`
+    (8), and 4 in complex128, whose values take twice a float64 value's
+    registers (``Plan::kCols`` in the CUDA source)."""
+    return MAX_COLS_PER_PASS // 2 if dtype == torch.complex128 else MAX_COLS_PER_PASS
+
+
+def window_cols_per_pass(nb, col_bytes, max_cols=MAX_COLS_PER_PASS):
     """Columns the window kernel stages a pass, for ``nb`` columns that
     take ``col_bytes`` each in a stage (the window and one zero
     block-column): as many as one stage fits in :data:`MAX_SHARED_BYTES`,
-    at most :data:`MAX_COLS_PER_PASS`, so that each block is read once for
-    as many columns as can be; 0 when not even one column fits."""
-    return min(nb, MAX_COLS_PER_PASS,
-               (MAX_SHARED_BYTES - _BARRIER_BYTES) // col_bytes)
+    at most ``max_cols`` (:func:`cols_per_pass` of the dtype), so that
+    each block is read once for as many columns as can be; 0 when not even
+    one column fits.  Complex128 at Wt = 384 stages 49,280 B a column:
+    b = 8 runs as 2 single-staged passes of 4 columns."""
+    return min(nb, max_cols, (MAX_SHARED_BYTES - _BARRIER_BYTES) // col_bytes)
 
 
 def window_stages(per_pass, col_bytes):
@@ -163,8 +179,8 @@ def gather8_steps(n_brow, L, nb, n_warps):
     persistent grid, the list of ``(block-row pair, first column, columns,
     first slot)`` steps it takes, in order.  Warp w takes the pairs w,
     w + n_warps, ...; a pair's steps are its passes of at most
-    :data:`MAX_COLS_PER_PASS` columns, each over its slots 4 at a time
-    (the arithmetic of ``spmv_bsr_gather8_kernel``)."""
+    :data:`MAX_COLS_PER_PASS` columns (in every dtype), each over its slots
+    4 at a time (the arithmetic of ``spmv_bsr_gather8_kernel``)."""
     n_pairs = -(-n_brow // 2)
     G, U = MAX_COLS_PER_PASS, 4
     plan = []
@@ -225,7 +241,7 @@ def bsr_window_matvec_plain(blocks, window, x, n_rows):
 
 
 def _check(kernel, blocks, cols, x, n_rows):
-    cuda = _build.on_cuda(kernel, blocks, x, dtypes=_build.REAL_DTYPES)
+    cuda = _build.on_cuda(kernel, blocks, x)
     if cols.dtype != torch.int32 or cols.device != blocks.device \
             or not cols.is_contiguous():
         raise TypeError(f"{kernel}: block ids must be contiguous int32 on the "
@@ -268,7 +284,7 @@ def _gather(kernel, wrapper, blocks, cols, x, n_rows):
     return y
 
 
-def _windowed(kernel, wrapper, blocks, window, x, n_rows):
+def _windowed(kernel, wrapper, blocks, window, x, n_rows, per_pass=None):
     n_rows = int(n_rows)
     if not _check(kernel, blocks, window.cols, x, n_rows):
         return bsr_window_matvec_plain(blocks, window, x, n_rows)
@@ -280,7 +296,8 @@ def _windowed(kernel, wrapper, blocks, window, x, n_rows):
                          "operands' device")
     nb = x.shape[0] if x.ndim == 2 else 1
     col_bytes = (window.width + 1) * c * blocks.dtype.itemsize
-    per_pass = window_cols_per_pass(nb, col_bytes)
+    if per_pass is None:
+        per_pass = window_cols_per_pass(nb, col_bytes, cols_per_pass(blocks.dtype))
     if per_pass < 1:
         raise ValueError(f"{kernel}: a window of {col_bytes} bytes a column does "
                          f"not fit {MAX_SHARED_BYTES} bytes of shared memory")
@@ -322,7 +339,8 @@ bsr_matvec.dtype_launches = {}
 def bsr_matmat(blocks, cols, X, n_rows):
     """:func:`bsr_matvec` for b columns given as the rows of ``X`` (b,
     n_cols); returns (b, n_rows).  Each block is read once for every
-    :data:`MAX_COLS_PER_PASS` columns, and every column gets the bits
+    :data:`MAX_COLS_PER_PASS` columns on 8 x 8 blocks (:func:`cols_per_pass`
+    on other shapes), and every column gets the bits
     :func:`bsr_matvec` gives it.  8 x 8 blocks take the staged kernel
     (:func:`uses_gather8`; ``gather8_launches`` counts those launches)."""
     _rows("spmv_bsr_cols", X)
@@ -346,14 +364,16 @@ bsr_window_matvec.launches = 0
 bsr_window_matvec.dtype_launches = {}
 
 
-def bsr_window_matmat(blocks, window, X, n_rows):
+def bsr_window_matmat(blocks, window, X, n_rows, *, per_pass=None):
     """:func:`bsr_window_matvec` for b columns given as the rows of ``X``
     (b, n_cols); returns (b, n_rows).  A pass stages the windows of
-    :func:`window_cols_per_pass` columns; every column gets the bits the
-    single-column kernel gives it."""
+    :func:`window_cols_per_pass` columns (``per_pass`` overrides the plan on
+    the card, to time another one; the kernel refuses more than
+    :func:`cols_per_pass` or than shared memory holds); every column gets
+    the bits the single-column kernel gives it."""
     _rows("spmv_bsr_window_cols", X)
     return _windowed("spmv_bsr_window_cols", bsr_window_matmat, blocks, window,
-                     X, n_rows)
+                     X, n_rows, per_pass)
 
 
 bsr_window_matmat.launches = 0

@@ -67,7 +67,7 @@ PROBES = 8
 
 def _refuse_mesh(mesh):
     if mesh is not None:
-        raise _not_ported("mesh= (sharded filtered solves)", "Queue 1 item 2")
+        raise _not_ported("mesh= (sharded filtered solves)", "Queue 1 item 1")
 
 
 def _generator(generator):

@@ -30,9 +30,18 @@ the float32 phase runs to ``max(tol, 2e-4)`` and a compact Krylov-Schur
 solve continues from its Schur rows in float64 (``solvers/refine.py``; no
 double-word arithmetic: Hopper has float64).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``mesh`` and checkpointing; a complex BSR operator (``linop.py``).
+``checkpoint_path`` writes a snapshot at restart boundaries
+(``utils/checkpoint.py``: the head rows of the basis, H and the counters,
+the JAX package's ``.npz`` keys) and ``resume=True`` continues from one, on
+the device path (scalar and block), the host tier and the float32 phase of
+a refined solve; a resumed solve repeats the unbroken one's matvecs,
+restarts and T.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
+item): ``mesh``, and with it the sharded checkpoint.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -43,6 +52,7 @@ from ..linop import _not_ported, as_operator, cast_operator
 from ..ops import dense_tier
 from ..ops.ortho import block_cgs2
 from ..utils import sorting
+from ..utils.checkpoint import RestartCheckpoint, load_checkpoint, save_checkpoint
 from ..utils.history import History
 from ..utils.profiling import phase_clock
 from ..utils.random import rand_normalized_vector
@@ -152,6 +162,7 @@ def partial_schur(
     block_size=1,
     mesh=None,
     checkpoint_path=None,
+    checkpoint_every=1,
     resume=False,
     _start_block=None,
 ):
@@ -216,8 +227,18 @@ def partial_schur(
         eigenvalues of multiplicity up to b, and reads the basis once per b
         matvecs.  Repeated saturation of the block expansion without
         convergence raises ``ValueError``.
-    mesh, checkpoint_path, resume : accepted for signature parity; anything
-        but their defaults raises ``NotImplementedError``.
+    mesh : accepted for signature parity; anything but None raises
+        ``NotImplementedError``.
+    checkpoint_path : optional path of a restart-boundary snapshot
+        (``utils/checkpoint.py``), written every ``checkpoint_every``
+        restarts (default 1) after the truncate+expand that follows the
+        boundary: the head rows ``V[:p+b]`` (one device-to-host copy), H
+        and the counters.  A refined solve snapshots its float32 phase.
+    resume : if True and ``checkpoint_path`` exists, continue from it (a
+        snapshot of either package); restarts count on from the snapshot's,
+        so ``max_restarts`` bounds the total.  Without the file the solve
+        starts fresh.  The locked prefix is restored under ``lock="hard"``
+        with b = 1 only.
     _start_block : private, for tests: a (b, n) block replacing v0 and the
         b - 1 drawn rows of the block driver's start block, which is then
         orthonormalized as the drawn one would be.
@@ -235,9 +256,7 @@ def partial_schur(
     if b < 1:
         raise ValueError(f"block_size must be positive, got {block_size}")
     if mesh is not None:
-        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 2")
-    if checkpoint_path is not None or resume:
-        raise _not_ported("checkpoint_path=/resume=", "Queue 1 item 3")
+        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 1")
     if lock not in ("soft", "hard"):
         raise ValueError(f"lock={lock!r}: expected 'soft' or 'hard'")
     refinement.check_refine(refine)
@@ -284,25 +303,40 @@ def partial_schur(
     history = History.from_k(nev)
     clock = phase_clock()
 
-    with clock("workspace_setup"):
-        ws = _workspace(A, op, device, max_dim, b, ortho, clock, wdtype)
-        ws.set_start(_start_rows(n, b, wdtype, dev, v0=v0, generator=generator,
-                                 start_block=_start_block, tol=tol))
-    m = ws.expand(0, tol)
-    total_matvecs = m
-
-    has_converged = False
-    nev_ret = nev
     hard_lock = lock == "hard" and b == 1
-    k_lock = 0
-    adaptive = p is None and b == 1
-    saturated = 0   # consecutive unconverged saturations (block driver)
     # The truncated leading block of H, kept in float64 on the host between
     # restarts (the device copy is in the work dtype and only gains columns).
     H_trunc_hp = None
     prev_pa = 0
+    restart0 = start_dim0 = k_lock = total_matvecs = 0
+    with clock("workspace_setup"):
+        ws = _workspace(A, op, device, max_dim, b, ortho, clock, wdtype)
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            ck = _load_snapshot(checkpoint_path, max_dim, b, n)
+            ws.set_start(torch.from_numpy(np.asarray(ck.V[:ck.pa + b])))
+            ws.set_h(ck.H_hp)
+            H_trunc_hp = ck.H_hp[:ck.pa + b, :ck.pa].copy()
+            prev_pa = start_dim0 = ck.pa
+            # A frozen prefix is a hard-lock concept: a hard-lock snapshot
+            # resumed under soft locking lets its pairs rejoin the sort.
+            k_lock = ck.k_lock if hard_lock else 0
+            history.matvecs[:] = ck.matvecs
+            history.restarts[:] = ck.restarts
+            history.residual_trace = list(ck.residual_trace)
+            total_matvecs, restart0 = ck.total_matvecs, ck.restart
+        else:
+            ws.set_start(_start_rows(n, b, wdtype, dev, v0=v0,
+                                     generator=generator,
+                                     start_block=_start_block, tol=tol))
+    m = ws.expand(start_dim0, tol)
+    total_matvecs += m - start_dim0
+
+    has_converged = False
+    nev_ret = nev
+    adaptive = p is None and b == 1
+    saturated = 0   # consecutive unconverged saturations (block driver)
     T_out = None
-    for restart in range(max_restarts):
+    for restart in range(restart0, max_restarts):
         happy_breakdown = m != max_dim
         if happy_breakdown and m < nev:
             raise ValueError(
@@ -475,6 +509,17 @@ def partial_schur(
             k_lock = k_new
 
         m_new = ws.restart(Qp_full, H_new, m, pa, 0.0 if reseed else tol)
+        if checkpoint_path and (restart + 1) % max(checkpoint_every, 1) == 0:
+            # The expansion only appended rows past pa + b: the head rows of
+            # the expanded workspace are the restart-boundary state.
+            with clock("checkpoint"):
+                save_checkpoint(checkpoint_path, RestartCheckpoint(
+                    V=ws.V[:pa + b], H_hp=H_new, pa=pa, restart=restart + 1,
+                    total_matvecs=total_matvecs,
+                    matvecs=history.matvecs.copy(),
+                    restarts=history.restarts.copy(),
+                    residual_trace=list(history.residual_trace),
+                    k_lock=k_lock))
         total_matvecs += m_new - pa
         m = m_new
 
@@ -499,6 +544,26 @@ def partial_schur(
     schur_vecs = ws.rows(nev_ret)     # back to the (n, nev) contract
     schur_mat = torch.from_numpy(T_out.astype(np_wdtype)).to(schur_vecs.device)
     return schur_vecs, schur_mat, history
+
+
+def _load_snapshot(path, max_dim, b, n):
+    """A single-file snapshot that fits this solve's workspace (the JAX
+    package's checks and messages); a sharded one raises."""
+    ck = load_checkpoint(path)
+    if ck.V is None:
+        raise _not_ported("a sharded checkpoint (a snapshot without V)",
+                          "Queue 1 item 1")
+    if ck.H_hp.shape != (max_dim + b, max_dim):
+        raise AssertionError(
+            f"checkpoint H shape {ck.H_hp.shape} does not match workspace "
+            f"{(max_dim + b, max_dim)}")
+    # Older snapshots (or a full-workspace writer) hold all max_dim + b
+    # rows: the head rows are sliced out.
+    if not (ck.V.shape[0] >= ck.pa + b and ck.V.shape[1] == n):
+        raise AssertionError(
+            f"checkpoint V shape {ck.V.shape} incompatible with head rows "
+            f"{(ck.pa + b, n)}")
+    return ck
 
 
 def eigenpairs_from_partial_schur(schur_vecs, schur_mat):

@@ -213,7 +213,7 @@ def partial_eigh(
     if b < 1:
         raise ValueError(f"block_size must be positive, got {block_size}")
     if mesh is not None:
-        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 2")
+        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 1")
     sort_function = _sym_sort(which)
     if max_restarts <= 0:
         raise ValueError(f"max_restarts must be positive, got {max_restarts}")

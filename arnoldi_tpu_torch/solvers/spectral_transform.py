@@ -15,7 +15,8 @@ A complex shift of a real operator makes the shifted product complex, as
 the JAX package's CPU backend makes every solve complex: the transformed
 operator is complex, so the outer solve is, and the real operator is
 applied to the real and imaginary parts of each vector as two columns of
-its b-column kernel (never cast: a real BSR operator has no complex form).
+its b-column kernel (never cast: the real values are read once for both
+parts, at half a complex operator's bytes).
 
 The API is the JAX package's with the port's conventions: ``generator=``
 (a CPU ``torch.Generator``) replaces ``key=``, ``device=`` places SciPy and

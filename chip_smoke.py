@@ -32,7 +32,16 @@ nonzero before the last line is printed):
    and the two CGS2 passes in complex128 and complex64 at the complex
    solves' shapes, each against its plain version, timed beside its bound
    and its library call (cuSPARSE's complex CSR product, cuBLAS's
-   ``Vt[:k].conj() @ w``);
+   ``Vt[:k].conj() @ w``); then the complex forms of both BSR kernels
+   (gather and staged 8 x 8 gather on the phased scattered matrix, both
+   window kernels on the phased banded-1024 matrix) in complex128 and
+   complex64 at b = 1 and 8, the same way (cuSPARSE's complex BSR
+   product), the complex128
+   window kernel at b = 8 with 4 columns a pass in one stage (the plan) and
+   2 in two stages, and complex128 edge shapes (the window kernels at b =
+   1, 3, 4, 5, 8, 11 with (8, 8) and (4, 4) blocks, the staged gather
+   kernel at b = 2, 3, 8, 11, 16; views one element in), every column bit
+   for bit against the single-column kernel;
 2. solve A: ``partial_schur`` on ``laplace_2d(724)`` (n = 524,176, DIA
    kernel + fused CGS2), LM, k = 5, m = 80, float64, tol 1e-8, checked
    against the analytic spectrum;
@@ -159,7 +168,27 @@ shift-invert solve finds (``PERF.md`` §2).
     values within 1e-9 (relative), and ``naive_explicit_restarts`` (m 20)
     against the largest of ARPACK's values of solve Z's reference, both
     in complex128 with the real ELL kernel applied to the real and
-    imaginary parts as two columns; restarts and matvecs printed.
+    imaginary parts as two columns; restarts and matvecs printed;
+35. solve RB: the phased scattered matrix as complex128 BSR-8 (its window
+    exceeds the budget: ``spmv_bsr``), LR, k = 5, m = 40, then
+    ``block_size=8`` (``spmv_bsr_cols``, the staged 8 x 8 gather kernel on
+    every call), each checked against solve R's ARPACK values;
+36. solve DB: ``phased(random_scattered(2^20, 24, seed=2, bandwidth=1024,
+    block=8))`` as complex128 BSR-8 (the window kernels), scalar and b = 8,
+    against complex ARPACK (computed in the reference worker);
+37. solve VB: RB's operator in complex64 to tol 1e-5, scalar and b = 8 (the
+    complex64 gather forms), within 1e-4 of solve RB's values;
+38. ``svds`` of the phased reflected banded-1024 matrix as complex128 BSR-8,
+    k = 5, LM, tol 1e-8, m = 40: the adjoint leg is the materialized
+    conjugate transpose, BSR through the same kernels (DB's own transpose
+    has no padded layout: its clipped edge block-columns hold ~64 blocks;
+    the script prints the refusal), checked against ARPACK's ``svds`` and
+    the triplets;
+39. checkpoint/resume: solve A with ``max_restarts=50``,
+    ``checkpoint_every=25`` into ``build/chip_smoke/`` must raise
+    ``ValueError``; resumed from its snapshot to convergence it must count
+    solve A's matvecs and restarts, with T within 1e-12 of solve A's;
+    the snapshot's size and write times printed.
 After phase 34 (outside every counted window) ``spmv_dia_cols`` on
 laplace_3d(64) and ``spmv_ell_cols`` on laplace_3d(48) as ELL are held
 against their plain versions at the filter's widths (b = 32, 64, each
@@ -190,14 +219,18 @@ kernels on the second, every complex form of DIA, ELL and the CGS2 pair in
 complex128 and ELL and the CGS2 pair in complex64 on the third, DIA, ELL
 and both CGS2 kernels on the fourth, ``spmv_dia_cols`` and ``spmv_dia`` in
 float64, ``spmv_ell_cols`` in float32 and float64, ``spmv_ell`` in float32
-and both CGS2 kernels on the fifth, and each solve must have launched the
-kernels of its operator in its dtype.
+and both CGS2 kernels on the fifth, every complex128 form of both BSR
+kernels and the complex64 gather forms on the sixth (zeroed before phase
+35, read after phase 39), and each solve must have launched the kernels of
+its operator in its dtype.
 The line before the last is a JSON object with each kernel's route,
 source, launches, error, times, bound and library time (and a record of
 each complex form, named ``kernel:dtype``, whose launches are the complex
 path's, and of ``spmv_dia_cols`` and ``spmv_ell_cols`` at the filter's
 widths, named ``kernel:filter``, whose launches are phases 32-34's in its
-dtype); the last line is ``{"ok": true, "device": {...}}``. Needs no
+dtype, and of each complex BSR form, named ``kernel:dtype`` too, whose
+launches are phases 35-39's); the last line is ``{"ok": true, "device":
+{...}}``. Needs no
 network and imports nothing of JAX.
 """
 
@@ -317,7 +350,8 @@ def csr_tensor(A, dtype, device):
 
 
 def bsr_tensor(A, dtype, device):
-    """``A`` as a torch BSR tensor with (8, 8) blocks and int32 indices."""
+    """``A`` as a torch BSR tensor with (8, 8) blocks and int32 indices
+    (cuSPARSE multiplies it on the card in every dtype of the port)."""
     import numpy as np
     import torch
 
@@ -1555,8 +1589,10 @@ def complex_reference(kind, n):
     it took: "R" the five largest-real eigenvalues of the phased scattered
     matrix, "T" the five largest of the Hermitian part of the phased
     reflected one, "svds" the five largest singular values of the latter;
-    and, for solve Z, "Z" the ten largest-real eigenvalues of the (real)
-    scattered matrix.
+    for solve Z, "Z" the ten largest-real eigenvalues of the (real)
+    scattered matrix; for solve DB, "DB" the five largest-real eigenvalues
+    of the phased banded-1024 matrix, and "svds_bsr" the five largest
+    singular values of its reflected form (phase 38).
     Run in a worker process (``start_references``): each builds its matrix
     from the seeds the solves use."""
     import numpy as np
@@ -1573,6 +1609,13 @@ def complex_reference(kind, n):
     elif kind == "Z":
         ref = eigs(scattered_matrix(n), 10, which="LR", tol=1e-8, ncv=40,
                    return_eigenvectors=False)
+    elif kind == "DB":
+        ref = eigs(phased(window_matrix(n)), 5, which="LR", tol=1e-8, ncv=40,
+                   return_eigenvectors=False)
+    elif kind == "svds_bsr":
+        ref = np.sort(scipy_svds(phased(reflected_scattered(n, seed=2, bandwidth=1024)),
+                                 5, solver="arpack", tol=1e-10,
+                                 return_singular_vectors=False))
     else:
         ref = np.sort(scipy_svds(phased(reflected_scattered(n)), 5, solver="arpack",
                                  tol=1e-10, return_singular_vectors=False))
@@ -1621,7 +1664,7 @@ def start_references(n, side):
 
     pool = multiprocessing.get_context("spawn").Pool(1, initializer=_one_blas_thread)
     references = {kind: pool.apply_async(complex_reference, (kind, n))
-                  for kind in ("R", "T", "svds", "Z")}
+                  for kind in ("R", "T", "svds", "Z", "DB", "svds_bsr")}
     references["pencil"] = pool.apply_async(pencil_reference, (side,))
     return pool, references
 
@@ -2670,6 +2713,406 @@ def phase_filter_kernels(mats, widths, gen, device="cuda"):
     return recs
 
 
+COMPLEX_BSR_KERNELS = ("spmv_bsr", "spmv_bsr_cols", "spmv_bsr_window",
+                       "spmv_bsr_window_cols")
+#: The complex BSR forms each complex dtype's solves must launch (phases 35-39).
+COMPLEX_BSR_PATH = {"complex128": COMPLEX_BSR_KERNELS,
+                    "complex64": ("spmv_bsr", "spmv_bsr_cols")}
+COMPLEX_WINDOW_EDGE_NB = (1, 3, 4, 5, 8, 11)   # 8, 11: passes of 4 in complex128
+CHECKPOINT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "build", "chip_smoke")
+
+
+def window_matrix(n):
+    """"banded-1024" (solves D, H; phased, DB and the BSR ``svds``)."""
+    from arnoldi_tpu_torch import matrices
+
+    return matrices.random_scattered(n, 24, seed=2, bandwidth=1024, block=8)
+
+
+def phase_complex_bsr_kernels(mats, gen, device="cuda"):
+    """Phase 1, complex BSR: the gather kernel (``spmv_bsr``, and the staged
+    8 x 8 ``spmv_bsr_cols``) on the phased scattered matrix (solves RB, VB)
+    and the window kernel (``spmv_bsr_window``, ``spmv_bsr_window_cols``)
+    on the phased banded-1024 matrix (solve DB), as BSR-8 in complex128 and
+    complex64, b = 1 and 8, each against its plain version (1e-12 and
+    1e-5), every column of a b-column form bit for bit against the
+    single-column kernel and the window kernel against the gather kernel;
+    each timed beside its bound (the nonzeros, their blocks' ids, x and y
+    at 3.35 TB/s; 8 flops a complex multiply-add) and its library call;
+    the complex128 window kernel at b = 8 also with 2 columns a pass in two
+    stages, against the plan's 4 in one; then the complex128 edge shapes
+    (``phase_complex_bsr_edges``).  Returns ``({(kernel, dtype name):
+    KernelRecord}, {plan: ms})``.  ``device="cpu"`` rehearses it with the
+    plain versions (stub the timers)."""
+    import torch
+
+    from arnoldi_tpu_torch import as_operator
+    from arnoldi_tpu_torch.ops.kernels import spmv_bsr
+
+    dev = torch.device(device)
+    brec, plans = {}, {}
+    for dtype in (torch.complex128, torch.complex64):
+        tag = str(dtype).removeprefix("torch.")
+        rec = {name: KernelRecord(dtype) for name in COMPLEX_BSR_KERNELS}
+        brec.update({(name, tag): r for name, r in rec.items()})
+        item = torch.empty((), dtype=dtype).element_size()
+        for kind, key in (("gather", "phased"), ("window", "phased_window")):
+            A = mats[key]
+            op = as_operator(A, dtype=dtype, format=("bsr", (8, 8)), device=dev)
+            if op.uses_window != (kind == "window"):
+                fail(f"complex BSR {key}: expected the {kind} kernel")
+            blk, ids, win, nr = op.blocks, op.block_cols, op.window, op.n_rows
+            x = torch.randn(op.n_cols, generator=gen, device=dev, dtype=dtype)
+            X = torch.randn(B_COLS, op.n_cols, generator=gen, device=dev, dtype=dtype)
+            forms = {
+                "spmv_bsr": (lambda: spmv_bsr.bsr_matvec(blk, ids, x, nr),
+                             lambda: spmv_bsr.bsr_matvec_plain(blk, ids, x, nr)),
+                "spmv_bsr_cols": (lambda: spmv_bsr.bsr_matmat(blk, ids, X, nr),
+                                  lambda: spmv_bsr.bsr_matvec_plain(blk, ids, X, nr)),
+                "spmv_bsr_window": (
+                    lambda: spmv_bsr.bsr_window_matvec(blk, win, x, nr),
+                    lambda: spmv_bsr.bsr_window_matvec_plain(blk, win, x, nr)),
+                "spmv_bsr_window_cols": (
+                    lambda: spmv_bsr.bsr_window_matmat(blk, win, X, nr),
+                    lambda: spmv_bsr.bsr_window_matvec_plain(blk, win, X, nr))}
+            names = COMPLEX_BSR_KERNELS[:2] if kind == "gather" else COMPLEX_BSR_KERNELS[2:]
+            nnzb = int((blk != 0).any(-1).any(-1).sum())
+            io = (op.n_rows + op.n_cols) * item
+            A_lib = bsr_tensor(A, dtype, dev)
+            Xt = X.T.contiguous()
+            for name in names:
+                kernel, plain = forms[name]
+                nb = B_COLS if name.endswith("_cols") else 1
+                r = rec[name]
+                r.check(f"BSR-8 {key} ({kind}) b={nb}", dtype, kernel(), plain())
+                r.time(kernel, plain)
+                r.set_bound(A.nnz * item + nnzb * 4 + nb * io, 8 * A.nnz * nb)
+                rhs = x if nb == 1 else Xt
+                r.time_library(f"A_bsr @ {'x' if nb == 1 else 'Xt'} (cuSPARSE BSR "
+                               f"{'SpMV' if nb == 1 else 'SpMM'}, blocks (8, 8), {tag})",
+                               lambda rhs=rhs: A_lib @ rhs,
+                               plain() if nb == 1 else plain().T)
+            if dev.type == "cuda":
+                Y = forms[names[1]][0]()
+                single = (spmv_bsr.bsr_matvec if kind == "gather"
+                          else lambda b, i, v, n: spmv_bsr.bsr_window_matvec(b, win, v, n))
+                for j in range(B_COLS):
+                    if not torch.equal(Y[j], single(blk, ids, X[j].contiguous(), nr)):
+                        fail(f"{names[1]} {tag}: column {j} differs from the "
+                             "single-column kernel")
+                if kind == "window" and not (
+                        torch.equal(Y, spmv_bsr.bsr_matmat(blk, ids, X, nr)) and torch.equal(
+                            forms["spmv_bsr_window"][0](), forms["spmv_bsr"][0]())):
+                    fail(f"complex BSR window {tag}: window and gather kernels differ")
+            if kind == "window" and dtype == torch.complex128:
+                # The plan's 4 columns a pass in one stage, against 2 a
+                # pass in two stages (the blocks read 4 times).
+                col_bytes = (win.width + 1) * 8 * item
+                for per_pass in (4, 2):
+                    def call(per_pass=per_pass):
+                        return spmv_bsr.bsr_window_matmat(blk, win, X, nr,
+                                                          per_pass=per_pass)
+                    if dev.type == "cuda" and not torch.equal(call(), forms[names[1]][0]()):
+                        fail(f"complex128 window plan {per_pass}: other bits")
+                    ms, dev_ms = cuda_ms(call), device_ms(call)
+                    stages = spmv_bsr.window_stages(per_pass, col_bytes)
+                    plans[f"{per_pass}_per_pass_{stages}_stage"] = {"ms": ms, "dev_ms": dev_ms}
+                    print(f"  complex128 window b={B_COLS}, {per_pass} columns a pass, "
+                          f"{stages} stage(s): {ms:.4f} ms (device {dev_ms})")
+            del op, blk, ids, win, x, X, Xt, A_lib
+        sync()
+        for name, r in rec.items():
+            print_time(f"{name}:{tag}", r)
+    phase_complex_bsr_edges({name: brec[(name, "complex128")] for name in
+                             COMPLEX_BSR_KERNELS}, gen, device)
+    return brec, plans
+
+
+def phase_complex_bsr_edges(rec, gen, device="cuda"):
+    """Phase 1, complex128 BSR edge shapes: the phased banded matrix of
+    2^17 - 5 rows as BSR (8, 8) and (4, 4) (window kernels) at b in
+    COMPLEX_WINDOW_EDGE_NB, and the phased scattered one of 2^17 - 5 rows
+    (gather kernels; the staged 8 x 8 one at b in GATHER_EDGE_NB), x / X
+    aligned and as views one element in, each against its plain version,
+    every column bit for bit against the single-column kernel (and the 8 x
+    8 window kernel against the gather kernel)."""
+    import torch
+
+    from arnoldi_tpu_torch import as_operator, matrices
+    from arnoldi_tpu_torch.ops.kernels import spmv_bsr
+
+    dev = torch.device(device)
+    c128 = torch.complex128
+    n = 2**17 - 5
+    cuda = dev.type == "cuda"
+
+    def views(nb, nc):
+        for view in (False, True):
+            buf = torch.randn(nb * nc + view, generator=gen, device=dev, dtype=c128)
+            yield view, buf[int(view):].view(nb, nc)
+
+    A = phased(matrices.random_scattered(2**17, 24, seed=3, bandwidth=1024,
+                                         block=8)[:n, :n])
+    for shape in ((8, 8), (4, 4)):
+        op = as_operator(A, format=("bsr", shape), device=dev)
+        if not op.uses_window or op.dtype != c128:
+            fail(f"complex window edges: the BSR {shape} operator should take the "
+                 "complex128 window kernel")
+        blk, ids, win, nr = op.blocks, op.block_cols, op.window, op.n_rows
+        label = f"complex BSR window edge {shape} ({n} rows, Wt={win.width})"
+        for nb in COMPLEX_WINDOW_EDGE_NB:
+            for view, X in views(nb, n):
+                tag = f"{label} b={nb}{', view one in' if view else ''}"
+                if nb == 1:
+                    rec["spmv_bsr_window"].check(
+                        tag, c128, spmv_bsr.bsr_window_matvec(blk, win, X[0], nr),
+                        spmv_bsr.bsr_window_matvec_plain(blk, win, X[0], nr))
+                    continue
+                Y = spmv_bsr.bsr_window_matmat(blk, win, X, nr)
+                rec["spmv_bsr_window_cols"].check(
+                    tag, c128, Y, spmv_bsr.bsr_window_matvec_plain(blk, win, X, nr))
+                for j in range(nb if cuda else 0):
+                    if not torch.equal(Y[j], spmv_bsr.bsr_window_matvec(
+                            blk, win, X[j].contiguous(), nr)):
+                        fail(f"{tag}: column {j} differs from the single-column kernel")
+                if cuda and shape == (8, 8) and not torch.equal(
+                        Y, spmv_bsr.bsr_matmat(blk, ids, X, nr)):
+                    fail(f"{tag}: window and gather kernels differ")
+        del op, blk, ids, win
+    A = phased(matrices.random_scattered(2**17, 24, seed=3, bandwidth=2**14,
+                                         block=8)[:n, :n])
+    op = as_operator(A, format=("bsr", (8, 8)), device=dev)
+    if op.uses_window:
+        fail("complex gather edges: the operator should take the gather kernel")
+    blk, ids, nr = op.blocks, op.block_cols, op.n_rows
+    label = f"complex BSR gather edge {tuple(blk.shape)}"
+    for view, X in views(1, n):
+        rec["spmv_bsr"].check(f"{label} b=1{', view one in' if view else ''}", c128,
+                              spmv_bsr.bsr_matvec(blk, ids, X[0], nr),
+                              spmv_bsr.bsr_matvec_plain(blk, ids, X[0], nr))
+    for nb in GATHER_EDGE_NB:
+        for view, X in views(nb, n):
+            tag = f"{label} b={nb}{', view one in' if view else ''}"
+            before = spmv_bsr.bsr_matmat.gather8_launches
+            Y = spmv_bsr.bsr_matmat(blk, ids, X, nr)
+            if cuda and spmv_bsr.bsr_matmat.gather8_launches != before + 1:
+                fail(f"{tag}: the staged gather kernel did not launch")
+            rec["spmv_bsr_cols"].check(tag, c128, Y,
+                                       spmv_bsr.bsr_matvec_plain(blk, ids, X, nr))
+            for j in range(nb if cuda else 0):
+                if not torch.equal(Y[j], spmv_bsr.bsr_matvec(blk, ids,
+                                                             X[j].contiguous(), nr)):
+                    fail(f"{tag}: column {j} differs from the single-column kernel")
+    del op, blk, ids
+
+
+def phase_complex_bsr(mats, references, counts, dcounts, refs, device="cuda"):
+    """Phases 35-39: complex BSR solves and checkpoint/resume.  RB (the
+    phased scattered matrix as complex128 BSR-8: gather kernels, scalar and
+    b = 8), DB (the phased banded-1024 matrix: window kernels, scalar and
+    b = 8), VB (RB's operator in complex64), ``svds`` of the reflected form
+    of DB's matrix (its adjoint leg the materialized conjugate transpose,
+    BSR too: DB's own has no padded layout), and solve A cut at 50 restarts
+    into a snapshot and resumed.  ``references``: the
+    ARPACK references (``start_references``); ``refs``: solve A's matvecs,
+    restarts and T.  Returns ``([(label, history, wall), ...], {label:
+    {summary field: value}})``."""
+    import numpy as np
+    import torch
+
+    from arnoldi_tpu_torch import as_operator, partial_schur, svds
+    from arnoldi_tpu_torch.ops.kernels import spmv_bsr
+    from arnoldi_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    c128, c64 = torch.complex128, torch.complex64
+    rows, extra = [], {}
+
+    def bsr(A, label):
+        t0 = time.perf_counter()
+        op = as_operator(A, format=("bsr", (8, 8)), device=device)
+        sync()
+        print(f"  {label}: {op.dtype} BsrOperator blocks {tuple(op.blocks.shape)}, "
+              f"window {op.window.width} block-columns -> "
+              f"{'window' if op.uses_window else 'gather'} kernel, built in "
+              f"{time.perf_counter() - t0:.3f} s")
+        if op.dtype != c128:
+            fail(f"{label}: a {op.dtype} operator, not complex128")
+        return op
+
+    A = mats["phased"]
+    print("phase 35: solve RB, the phased scattered matrix as complex128 BSR-8, LR, "
+          f"k=5, m=40, scalar and block_size={B_COLS}")
+    op_rb = bsr(A, "solve RB")
+    if op_rb.uses_window:
+        fail("solve RB: the phased scattered matrix should take the gather kernel")
+    ref_r = reference(references, "R")
+    before = dcounts()
+    Q, T, hist, wall = solve("solve RB", op_rb, 5, "LR", 40, counts, dtype=c128)
+    check_launched_dtype("solve RB", before, dcounts(),
+                         ("spmv_bsr", "masked_project", "project_update_norm"), c128)
+    check_triangular("solve RB", T)
+    check_arpack("solve RB", A, Q, T, ref_r)
+    lam_rb = np.diag(host_array(T))
+    rows.append(("RB", hist, wall))
+    del Q
+    before, staged = dcounts(), spmv_bsr.bsr_matmat.gather8_launches
+    Q, T, hist, wall = solve(f"solve RB, block_size={B_COLS}", op_rb, 5, "LR", 40,
+                             counts, dtype=c128, block_size=B_COLS)
+    after = dcounts()
+    check_launched_dtype("solve RB (block)", before, after, ("spmv_bsr_cols",), c128)
+    staged = spmv_bsr.bsr_matmat.gather8_launches - staged
+    calls = (after["spmv_bsr_cols"].get("complex128", 0)
+             - before["spmv_bsr_cols"].get("complex128", 0))
+    print(f"  spmv_bsr_cols launches of the staged 8 x 8 gather kernel: {staged} of {calls}")
+    if torch.device(device).type == "cuda" and staged != calls:
+        fail("solve RB (block) did not launch spmv_bsr_gather8_kernel on every call")
+    check_triangular("solve RB (block)", T)
+    check_arpack("solve RB (block)", A, Q, T, ref_r)
+    rows.append(("RB8", hist, wall))
+    del Q
+
+    A_db = mats["phased_window"]
+    print("phase 36: solve DB, the phased banded-1024 matrix as complex128 BSR-8, "
+          f"LR, k=5, m=40, scalar and block_size={B_COLS}")
+    op_db = bsr(A_db, "solve DB")
+    if not op_db.uses_window:
+        fail("solve DB: the phased banded-1024 matrix's window should fit")
+    ref_db = reference(references, "DB")
+    for label, b, names in (("DB", 1, ("spmv_bsr_window",)),
+                            ("DB8", B_COLS, ("spmv_bsr_window_cols",))):
+        before = dcounts()
+        Q, T, hist, wall = solve(f"solve {label}", op_db, 5, "LR", 40, counts,
+                                 dtype=c128, block_size=b)
+        check_launched_dtype(f"solve {label}", before, dcounts(), names, c128)
+        check_triangular(f"solve {label}", T)
+        check_arpack(f"solve {label}", A_db, Q, T, ref_db)
+        rows.append((label, hist, wall))
+        del Q
+
+    print("phase 37: solve VB, RB's operator in complex64, tol 1e-5, LR, k=5, m=40, "
+          f"scalar and block_size={B_COLS}")
+    for label, b, names in (("VB", 1, ("spmv_bsr", "masked_project",
+                                       "project_update_norm")),
+                            ("VB8", B_COLS, ("spmv_bsr_cols",))):
+        before = dcounts()
+        Q, T, hist, wall = solve(f"solve {label}", op_rb, 5, "LR", 40, counts,
+                                 dtype=c64, tol=1e-5, block_size=b)
+        check_launched_dtype(f"solve {label}", before, dcounts(), names, c64)
+        if Q.dtype != c64 or "refine.continue" in hist.phases:
+            fail(f"solve {label}: a {Q.dtype} result, or a refined one")
+        check_triangular(f"solve {label}", T)
+        err = matched_error(np.diag(host_array(T)), lam_rb)
+        print(f"  eigenvalues {np.sort_complex(np.diag(host_array(T)))}; matched "
+              f"error against solve RB {err:.3e} (limit 1e-4)")
+        if not err <= 1e-4:
+            fail(f"solve {label} disagrees with solve RB")
+        rows.append((label, hist, wall))
+        del Q
+    del op_rb
+
+    print("phase 38: svds of the phased reflected banded-1024 matrix as complex128 "
+          "BSR-8, k=5, LM, tol 1e-8, m=40: Lanczos on A^H A, A^H the "
+          "conjugate-transposed BSR")
+    from arnoldi_tpu_torch.linop import adjoint_operator
+
+    # The block budget: DB's matrix clips its rows at the edges, so its
+    # first and last block-columns hold ~64 blocks; its transpose padded to
+    # that would store 16x its blocks, and _transpose_bsr refuses it.
+    try:
+        adjoint_operator(op_db)
+        print("  DB's operator: its conjugate transpose has a padded layout")
+    except ValueError as e:
+        print(f"  DB's operator: no padded layout for its transpose ({str(e)[:120]}...)")
+    del op_db
+    A_sv = mats["phased_window_reflect"]
+    op_sv = bsr(A_sv, "svds")
+    before = dcounts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    U, s, Vh, hist = svds(op_sv, 5, which="LM", tol=1e-8, ncv=40, dtype=c128,
+                          return_history=True)
+    sync()
+    wall = time.perf_counter() - t0
+    report_solve("BSR svds", hist, wall, counts)
+    adj = adjoint_operator(op_sv)
+    print(f"  A^H: BsrOperator blocks {tuple(adj.blocks.shape)}, window "
+          f"{adj.window.width} -> {'window' if adj.uses_window else 'gather'} kernel")
+    check_launched_dtype("BSR svds", before, dcounts(),
+                         ("spmv_bsr_window" if adj.uses_window else "spmv_bsr",), c128)
+    ref = reference(references, "svds_bsr")
+    Uh, Vn = host_array(U), host_array(Vh).conj().T
+    sv_err = float(np.abs(s - ref).max() / ref.max())
+    r_av = float(np.linalg.norm(A_sv @ Vn - Uh * s, axis=0).max() / s.max())
+    r_ahu = float(np.linalg.norm(A_sv.conj().T @ Uh - Vn * s, axis=0).max() / s.max())
+    orth = max(np.abs(Uh.conj().T @ Uh - np.eye(5)).max(),
+               np.abs(Vn.conj().T @ Vn - np.eye(5)).max())
+    print(f"  singular values {s}; ARPACK {ref}")
+    print(f"  relative error {sv_err:.3e} (limit 1e-9); |Av - su| / s_max "
+          f"{r_av:.3e}, |A^H u - sv| / s_max {r_ahu:.3e} (limits 1e-7); "
+          f"orthonormality {orth:.3e} (limit 1e-10)")
+    if not (U.dtype == c128 and sv_err <= 1e-9 and r_av <= 1e-7 and r_ahu <= 1e-7
+            and orth <= 1e-10):
+        fail("BSR svds disagrees with ARPACK's svds or its triplets are off")
+    rows.append(("svds_bsr", hist, wall))
+    del U, Vh, op_sv, adj
+
+    A = mats["laplace"]
+    print("phase 39: checkpoint: solve A cut at max_restarts=50 with a snapshot "
+          "every 25 restarts, then resumed")
+    op = as_operator(A, dtype=torch.float64, device=device)
+    os.makedirs(CHECKPOINT_DIR, exist_ok=True)
+    path = os.path.join(CHECKPOINT_DIR, "solve_a.npz")
+    if os.path.exists(path):
+        os.remove(path)
+    args = dict(max_dim=80, stopping_criterion=1e-8, sort_function="LM",
+                dtype=torch.float64, ortho="cgs2", checkpoint_path=path,
+                checkpoint_every=25)
+    t0 = time.perf_counter()
+    try:
+        partial_schur(op, 5, max_restarts=50, **args)
+    except ValueError as e:
+        if "Has not converged" not in str(e):
+            raise
+        print(f"  cut run raised ValueError ({e}) after "
+              f"{time.perf_counter() - t0:.3f} s")
+    else:
+        fail("solve A at max_restarts=50 should not have converged")
+    ck = load_checkpoint(path)
+    size = os.path.getsize(path)
+    print(f"  snapshot: restart {ck.restart}, pa {ck.pa}, V {ck.V.shape} {ck.V.dtype}, "
+          f"{size} bytes, total_matvecs {ck.total_matvecs}")
+    if ck.restart != 50:
+        fail(f"checkpoint: the snapshot is of restart {ck.restart}, not 50")
+    t0 = time.perf_counter()
+    save_checkpoint(path + ".copy.npz", ck)
+    rewrite = time.perf_counter() - t0
+    os.remove(path + ".copy.npz")
+    print(f"  writing it again from host memory (.npz, atomic rename): {rewrite:.4f} s")
+    t0 = time.perf_counter()
+    Q, T, hist = partial_schur(op, 5, max_restarts=1000, resume=True, **args)
+    sync()
+    wall = time.perf_counter() - t0
+    report_solve("solve A resumed", hist, wall, counts)
+    write = hist.phases.get("checkpoint", {})
+    print(f"  snapshot writes in the resumed run: {write}")
+    restarts = len(hist.residual_trace)
+    diff = float(np.abs(host_array(T) - refs["A_T"]).max())
+    print(f"  resumed: matvecs {hist.total_matvecs}, restarts {restarts}; solve A: "
+          f"{refs['A_matvecs']}, {refs['A_restarts']}; max |T - T_A| {diff:.3e} "
+          f"(limit 1e-12; bit-equal: {diff == 0.0})")
+    if not (hist.total_matvecs == refs["A_matvecs"] and restarts == refs["A_restarts"]
+            and diff <= 1e-12):
+        fail("the resumed solve A differs from solve A")
+    check_laplace("solve A resumed", A, Q, T, round(A.shape[0] ** 0.5))
+    rows.append(("A_resumed", hist, wall))
+    extra["A_resumed"] = {"snapshot_bytes": size, "snapshot_write": write,
+                          "snapshot_rewrite_s": rewrite, "max_abs_dT": diff}
+    os.remove(path)
+    del Q, op
+    return rows, extra
+
+
 def main():
     import torch
 
@@ -2715,8 +3158,7 @@ def main():
         "scattered": scattered_matrix(2**20),
         "mark": matrices.mark(1000),
         "rect": rectangular(200_000, 300_000, max_degree=60, seed=0),
-        "window": matrices.random_scattered(2**20, 24, seed=2,
-                                            bandwidth=1024, block=8),
+        "window": window_matrix(2**20),
         "reflect": reflected_scattered(2**20),
         "window_reflect": reflected_scattered(2**18, seed=2, bandwidth=1024),
     }
@@ -2724,6 +3166,9 @@ def main():
     mats["gauge"], mats["gauge_g"] = gauge_rotated(mats["laplace"])
     mats["gauge200"] = gauge_rotated(matrices.laplace_2d(200))[0]
     mats["phased"] = phased(mats["scattered"])
+    mats["phased_window"] = phased(mats["window"])
+    mats["phased_window_reflect"] = phased(reflected_scattered(2**20, seed=2,
+                                                               bandwidth=1024))
     mats["phased_reflect"] = phased(mats["reflect"])
     mats["hermitian"] = hermitian_part(mats["phased_reflect"])
     mats["mark_phased"] = phased(matrices.mark(100))
@@ -2742,7 +3187,7 @@ def main():
 
 
 def run_phases(mats, references, smi):
-    """Phases 1-34 and the report (``main`` builds the matrices and starts
+    """Phases 1-39 and the report (``main`` builds the matrices and starts
     the complex solves' ARPACK references)."""
     import torch
 
@@ -2754,6 +3199,8 @@ def run_phases(mats, references, smi):
     t0 = time.perf_counter()
     rec = phase_kernels(mats)
     crec = phase_complex_kernels(mats, torch.Generator(device="cuda").manual_seed(2))
+    brec, window_plans = phase_complex_bsr_kernels(
+        mats, torch.Generator(device="cuda").manual_seed(5))
     print(f"  phase 1 wall {time.perf_counter() - t0:.2f} s")
 
     def counts():
@@ -2773,6 +3220,7 @@ def run_phases(mats, references, smi):
     check_launched("solve A", before, counts(),
                    ("spmv_dia", "masked_project", "project_update_norm"))
     check_laplace("solve A", A, Q, T, 724)
+    T_a = host_array(T)
     del Q
 
     print("phase 3: solve B, random_scattered(2^20), LR, k=5, m=40, float64, tol 1e-8")
@@ -2878,7 +3326,8 @@ def run_phases(mats, references, smi):
     del Q, op
 
     refs = {"B": ref_b, "B_matvecs": hist_b.total_matvecs,
-            "A_matvecs": hist_a.total_matvecs}
+            "A_matvecs": hist_a.total_matvecs,
+            "A_restarts": len(hist_a.residual_trace), "A_T": T_a}
     hermitian = phase_hermitian(mats, counts, refs)
 
     final, final_dtypes = counts(), kernels.dtype_launch_counts()
@@ -2948,6 +3397,20 @@ def run_phases(mats, references, smi):
     frec = phase_filter_kernels(mats, widths, torch.Generator(device="cuda").manual_seed(4))
     f_extra["32"]["sweep"] = filter_sweep_split(mats, widths["geometry"])
 
+    # The complex BSR path and checkpoint/resume, counted on their own.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    b_rows, b_extra = phase_complex_bsr(mats, references, counts,
+                                        kernels.dtype_launch_counts, refs)
+    b_wall = time.perf_counter() - t0
+    b_counts, b_dtypes = counts(), kernels.dtype_launch_counts()
+    idle = [f"{name}:{tag}" for tag, names in COMPLEX_BSR_PATH.items()
+            for name in names if b_dtypes[name].get(tag, 0) == 0]
+    if idle:
+        fail(f"complex BSR forms never launched on phases 35-39: {idle}")
+    print(f"launches on the complex BSR and checkpoint path (phases 35-39): {b_dtypes}")
+    print(f"phases 35-39 wall {b_wall:.2f} s")
+
     summary = {label: {"matvecs": h.total_matvecs, "restarts": len(h.residual_trace),
                        "wall_s": w, "ms_per_matvec": 1e3 * w / h.total_matvecs}
                for label, h, w in (("A", hist_a, wall_a), ("B", hist_b, wall_b),
@@ -2955,9 +3418,9 @@ def run_phases(mats, references, smi):
                                    ("E", hist_e, wall_e), ("F", hist_f, wall_f),
                                    ("G", hist_g, wall_g), ("H", hist_h, wall_h),
                                    *hermitian, *refined, *complex_rows,
-                                   *si_rows, *f_rows)}
+                                   *si_rows, *f_rows, *b_rows)}
     for label, fields in {**extra, **complex_extra, **si_extra,
-                          **f_extra}.items():
+                          **f_extra, **b_extra}.items():
         summary[label].update(fields)
     print(f"solves: {json.dumps(summary)}")
     print(f"card: {smi}")
@@ -2974,7 +3437,9 @@ def run_phases(mats, references, smi):
          "dtypes_phases_19_25": complex_dtypes[name],
          "launches_phases_26_31": si_counts[name],
          "launches_phases_32_34": f_counts[name],
-         "dtypes_phases_32_34": f_dtypes[name]}
+         "dtypes_phases_32_34": f_dtypes[name],
+         "launches_phases_35_39": b_counts[name],
+         "dtypes_phases_35_39": b_dtypes[name]}
         for name, (_, source, replaces) in kernels.KERNELS.items()]}
     # The complex forms, each with its own record: "launches" counts the
     # complex path's launches in its dtype.
@@ -2986,6 +3451,17 @@ def run_phases(mats, references, smi):
          "bound_by": r.bound_by, "library_ms": r.library_ms, "dev_ms": r.dev_ms,
          "library_dev_ms": r.library_dev_ms, "library": r.library}
         for (name, tag), r in crec.items()]
+    # The complex BSR forms: "launches" counts phases 35-39's in the dtype.
+    report["kernels"] += [
+        {"name": f"{name}:{tag}", "route": "cuda", "source": kernels.KERNELS[name][1],
+         "replaces": kernels.KERNELS[name][2], "dtype": tag,
+         "launches": b_dtypes[name].get(tag, 0), "max_abs_err": r.max_abs_err,
+         "ms": r.ms, "plain_ms": r.plain_ms, "bound_ms": r.bound_ms,
+         "bound_by": r.bound_by, "library_ms": r.library_ms, "dev_ms": r.dev_ms,
+         "library_dev_ms": r.library_dev_ms, "library": r.library,
+         **({"window_plans": window_plans} if name == "spmv_bsr_window_cols"
+            and tag == "complex128" else {})}
+        for (name, tag), r in brec.items()]
     # The b-column forms at the filter's widths (phases 32-33): "launches"
     # counts phases 32-34's launches in the record's dtype.
     report["kernels"] += [

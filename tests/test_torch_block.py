@@ -35,6 +35,7 @@ from arnoldi_tpu_torch.utils.sorting import sort_function_for
 from common import find_best_matching
 from torch_parity import (
     assert_quasi_triangular,
+    jax_start_block,
     port_operator,
     schur_residuals,
     to_numpy,
@@ -108,14 +109,6 @@ def test_block_cgs2_float32():
     np.testing.assert_allclose(Q.numpy() @ Q.numpy().T, np.eye(4), atol=1e-5)
 
 
-def _start_block(n, b, v0, dtype=np.float64):
-    """JAX's start block for ``key=None``: v0 and normal(key(0)) rows."""
-    v0 = np.asarray(v0, dtype) / np.linalg.norm(v0)
-    extra = np.asarray(jax.random.normal(jax.random.key(0), (b - 1, n),
-                                         dtype=dtype))
-    return np.vstack([v0[None, :], extra])
-
-
 @pytest.mark.parametrize("fmt", ["ell", "bsr"])
 def test_one_block_expansion_matches_jax(fmt):
     A = random_scattered(512, 24, seed=1, bandwidth=64, block=8)
@@ -125,7 +118,7 @@ def test_one_block_expansion_matches_jax(fmt):
     Vt0 = np.zeros((n_blocks * b + b, n))
     H0 = np.zeros((n_blocks * b + b, n_blocks * b))
     Vt0[:b] = np.asarray(jax_block_cgs2(
-        jnp.asarray(Vt0), jnp.asarray(_start_block(n, b, np.ones(n))), 0)[1])
+        jnp.asarray(Vt0), jnp.asarray(jax_start_block(n, b, np.ones(n))), 0)[1])
     Vj, Hj, jb = _block_expand_jit(jop, jnp.asarray(Vt0), jnp.asarray(H0),
                                    1e-10, start_block=0, n_blocks=n_blocks, b=b)
     V, H, done = block_arnoldi_expand(port_operator(jop), torch.from_numpy(Vt0),
@@ -225,7 +218,7 @@ def _both(case, **kw):
     args.update(kw)
     ref = jax_partial_schur(jop, nev, v0=v0, **args)
     got = partial_schur(port_operator(jop), nev,
-                        _start_block=_start_block(n, b, v0), **args)
+                        _start_block=jax_start_block(n, b, v0), **args)
     return A, ref, got
 
 

@@ -28,17 +28,14 @@ from arnoldi_tpu.harness.suite import eigenvalues_match
 from arnoldi_tpu.linop import as_operator as jax_as_operator
 from arnoldi_tpu.matrices import laplace_2d, mark, random_scattered
 from arnoldi_tpu.ops import ortho as jax_ortho
-from arnoldi_tpu_torch import (BsrOperator, as_operator, partial_eigh,
-                               partial_schur, svds)
-from arnoldi_tpu_torch.convert import (operator_from_reference,
-                                       workspace_from_reference)
-from arnoldi_tpu_torch.linop import cast_operator
+from arnoldi_tpu_torch import as_operator, partial_eigh, partial_schur, svds
+from arnoldi_tpu_torch.convert import workspace_from_reference
 from arnoldi_tpu_torch.ops import ortho
 from arnoldi_tpu_torch.ops.kernels.ortho_fused import (masked_project,
                                                        project_update_norm)
 from arnoldi_tpu_torch.ops.kernels.spmv_banded import banded_matvec_plain
 from arnoldi_tpu_torch.ops.kernels.spmv_ell import ell_matvec_plain
-from torch_parity import port_operator, reference_leaves, to_numpy
+from torch_parity import port_operator, to_numpy
 
 torch.set_num_threads(1)
 
@@ -326,27 +323,6 @@ def test_convert_carries_complex_leaves():
         np.ones(5, np.complex128) * 1j, device="cpu")
     assert (Vt.dtype, H.dtype, v0.dtype) == (torch.complex128, torch.complex64,
                                              torch.complex128)
-
-
-def test_complex_bsr_is_refused_on_every_device():
-    A = phased(scattered(256))
-    for build in (lambda: as_operator(A, format="bsr", device="cpu"),
-                  lambda: BsrOperator.from_scipy(A, device="cpu"),
-                  lambda: BsrOperator.from_scipy(A.real, dtype=np.complex64,
-                                                 device="cpu"),
-                  lambda: cast_operator(as_operator(A.real, format="bsr",
-                                                    device="cpu"),
-                                        torch.complex128)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.md, Queue 1 item 1"):
-            build()
-    # the card refuses the same operator before any kernel is reached
-    with pytest.raises(NotImplementedError, match="complex BSR"):
-        as_operator(A, format="bsr", device="cuda")
-    jop = jax_as_operator(A.real, format="bsr")
-    kind, leaves, aux = reference_leaves(jop)
-    leaves = [leaves[0].astype(np.complex128), leaves[1]]
-    with pytest.raises(NotImplementedError, match="complex BSR"):
-        operator_from_reference(kind, leaves, aux, device="cpu")
 
 
 def test_dw_refinement_of_a_complex_solve_is_refused():

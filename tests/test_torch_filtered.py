@@ -353,5 +353,5 @@ def test_mesh_is_not_ported():
                  lambda: pf.eigsh_window(L, (-2.2, -1.8), device="cpu",
                                          mesh=object()),
                  lambda: pf.spectrum_bounds(L, device="cpu", mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
             call()

@@ -187,15 +187,28 @@ def test_host_input_needs_a_device():
 
 @pytest.mark.parametrize("kwargs,error", [
     pytest.param(dict(mesh=object()), NotImplementedError, id="mesh"),
-    pytest.param(dict(checkpoint_path="run.npz"), NotImplementedError,
-                 id="checkpoint_path"),
-    pytest.param(dict(resume=True), NotImplementedError, id="resume"),
+    # resuming from a sharded (mesh) snapshot, which holds no V: the
+    # scalar and the block driver
+    pytest.param(dict(checkpoint_path="sharded", resume=True),
+                 NotImplementedError, id="checkpoint_path"),
+    pytest.param(dict(checkpoint_path="sharded", resume=True, block_size=2),
+                 NotImplementedError, id="resume"),
     # a refined complex solve: JAX asserts the real float32 path
     pytest.param(dict(refine="dw", dtype=np.complex64), ValueError,
                  id="refine"),
 ])
-def test_outside_the_slice_raises(kwargs, error):
+def test_outside_the_slice_raises(kwargs, error, tmp_path):
+    from arnoldi_tpu_torch.utils import checkpoint
+
     op = as_operator(mark(10), device="cpu")
+    if kwargs.get("checkpoint_path") == "sharded":
+        path = str(tmp_path / "sharded.npz")
+        checkpoint._atomic_savez(path, **checkpoint._meta_arrays(
+            checkpoint.RestartCheckpoint(
+                V=None, H_hp=np.zeros((21, 20)), pa=10, restart=3,
+                total_matvecs=40, matvecs=np.zeros(3, np.int32),
+                restarts=np.zeros(3, np.int32), residual_trace=[1.0])))
+        kwargs = dict(kwargs, checkpoint_path=path)
     with pytest.raises(error, match="ROADMAP" if error is NotImplementedError
                        else "refine='dw'"):
         partial_schur(op, 3, **kwargs)

@@ -213,8 +213,8 @@ def test_splu_complex_rhs_on_a_real_factorization():
 def test_real_bsr_operator_with_a_complex_shift():
     # A complex shift makes the transformed operator complex; the real BSR
     # operator is applied to the real and imaginary parts as two columns
-    # (its b-column kernel), never cast to a complex BSR operator, which
-    # has no kernel.
+    # (its b-column kernel), never cast to a complex BSR operator: its real
+    # values are read once for both parts, half a complex cast's bytes.
     A = sp.csr_matrix(_normal_interior()[0])
     op = BsrOperator.from_scipy(A, blocksize=(8, 8), device="cpu")
     sigma = 0.5 + 0.1j

@@ -48,6 +48,18 @@ def assert_quasi_triangular(T):
     assert not np.any(sub[1:] & sub[:-1])
 
 
+def jax_start_block(n, b, v0, dtype=np.float64):
+    """The JAX package's block start block when it is given ``v0`` (and no
+    ``key``): v0 normalized and b - 1 rows of ``normal(key(0))``
+    (``krylov_schur.py:421-422``), for the port's ``_start_block``."""
+    import jax
+
+    v0 = np.asarray(v0, dtype) / np.linalg.norm(v0)
+    extra = np.asarray(jax.random.normal(jax.random.key(0), (b - 1, n),
+                                         dtype=dtype))
+    return np.vstack([v0[None, :], extra])
+
+
 class ContinuationCounter:
     """Records the matvecs of each float64 continuation that
     ``arnoldi_tpu_torch.solvers.refine.refine_schur`` runs while installed
