@@ -10,9 +10,14 @@ plain PyTorch versions.  Small SciPy/NumPy problems run on the host tier
 """
 
 from ._version import __version__
+from . import parallel
 from .linop import (BandedOperator, BsrOperator, CallableOperator,
                     DenseOperator, EllOperator, GramOperator, LinearOperator,
                     as_operator, pad_operator, rmatmat, rmatvec)
+from .parallel import (banded_matvec_halo, bsr_matvec_halo, ell_matvec_halo,
+                       halo_matvec_closure, make_mesh, replicated_sharding,
+                       row_sharding, shard_operator, shard_workspace,
+                       sharded_partial_schur, sparsity_bandwidth)
 from .solvers.decomposition import RitzDecomposition, arnoldi_decomposition
 from .solvers.explicit_restarts import (explicit_restarts_with_deflation,
                                         naive_explicit_restarts)
@@ -38,23 +43,35 @@ __all__ = [
     "RitzDecomposition",
     "arnoldi_decomposition",
     "as_operator",
+    "banded_matvec_halo",
+    "bsr_matvec_halo",
     "eigenpairs_from_partial_schur",
     "eigs",
     "eigs_realified",
     "eigsh",
     "eigsh_filtered",
     "eigsh_window",
+    "ell_matvec_halo",
     "explicit_restarts_with_deflation",
     "generalized_operator",
+    "halo_matvec_closure",
+    "make_mesh",
     "naive_explicit_restarts",
     "gram_companions",
     "pad_operator",
+    "parallel",
     "partial_eigh",
     "partial_schur",
     "realify_operator",
+    "replicated_sharding",
     "rmatmat",
     "rmatvec",
+    "row_sharding",
+    "shard_operator",
+    "shard_workspace",
+    "sharded_partial_schur",
     "shift_invert_operator",
+    "sparsity_bandwidth",
     "svds",
     "__version__",
 ]

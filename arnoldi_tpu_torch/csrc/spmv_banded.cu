@@ -30,6 +30,16 @@
 // Complex forms (c64, c128): the same kernel over arn::complex values, each
 // product a fixed-order complex multiply-add (common.cuh); a complex128
 // element is 16 bytes, so the bound doubles float64's bytes.
+//
+// The shard form (spmv_dia_ext, replacing the same Pallas kernel under a
+// device mesh): the rows [row0, row0 + rows) of a row block of the bands
+// (row stride bstride), against an x window of x_len entries a column in
+// which row i reads x[i + x_base + off].  The ring-halo SpMV runs it over
+// [left halo | own block | right halo] (x_base = halo), the all-gather SpMV
+// over the whole vector (x_base = the block's first global row), and the
+// halo fix-up over the first and last halo rows alone.  The square entry
+// points are its x_base = 0, x_len = n case: the same sums in the same
+// order, so their bits do not change.
 #include <cuda_runtime.h>
 
 #include "common.cuh"
@@ -48,72 +58,78 @@ struct DiaOffsets {
 template <typename T, int NB>
 __global__ void __launch_bounds__(kThreads)
 spmv_dia_kernel(const T* __restrict__ bands, const T* __restrict__ x,
-                T* __restrict__ y, long long n, int nb, DiaOffsets o) {
-    const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+                T* __restrict__ y, long long rows, long long row0,
+                long long bstride, long long x_base, long long x_len, int nb,
+                DiaOffsets o) {
+    const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= rows) return;
+    const long long i = row0 + t;
     const int j0 = blockIdx.y * NB;
     const int cnt = min(NB, nb - j0);
-    x += static_cast<long long>(j0) * n;
-    y += static_cast<long long>(j0) * n;
+    x += static_cast<long long>(j0) * x_len;
+    y += static_cast<long long>(j0) * rows;
     T acc[NB];
 #pragma unroll
     for (int j = 0; j < NB; ++j) acc[j] = T(0);
     for (int d = 0; d < o.k; ++d) {
-        const long long s = i + o.off[d];
-        if (s < 0 || s >= n) continue;
-        const T bv = bands[static_cast<long long>(d) * n + i];
+        const long long s = i + x_base + o.off[d];
+        if (s < 0 || s >= x_len) continue;
+        const T bv = bands[static_cast<long long>(d) * bstride + i];
 #pragma unroll
         for (int j = 0; j < NB; ++j)
-            if (j < cnt) acc[j] = arn::madd(acc[j], bv, x[static_cast<long long>(j) * n + s]);
+            if (j < cnt) acc[j] = arn::madd(acc[j], bv, x[static_cast<long long>(j) * x_len + s]);
     }
 #pragma unroll
     for (int j = 0; j < NB; ++j)
-        if (j < cnt) y[static_cast<long long>(j) * n + i] = acc[j];
+        if (j < cnt) y[static_cast<long long>(j) * rows + t] = acc[j];
 }
 
+// Rows [row0, row0 + rows) of a shard whose bands have row stride bstride,
+// against the x window x_ext of x_len entries per column (row i reads
+// x_ext[i + x_base + off]); y holds the rows' results, rows per column.
 template <typename T>
-int launch_dia(const T* bands, const T* x, T* y, long long n, int k,
-               const long long* offsets, int nb, void* stream) {
-    if (k < 0 || k > kMaxOffsets || n < 0 || nb < 1)
+int launch_dia(const T* bands, const T* x, T* y, long long rows, int k,
+               const long long* offsets, int nb, long long bstride,
+               long long row0, long long x_base, long long x_len, void* stream) {
+    if (k < 0 || k > kMaxOffsets || rows < 0 || nb < 1 || row0 < 0 ||
+        x_len < 0 || (rows > 0 && row0 + rows > bstride))
         return static_cast<int>(cudaErrorInvalidValue);
-    if (n == 0) return 0;
+    if (rows == 0) return 0;
     DiaOffsets o{};
     o.k = k;
     for (int d = 0; d < k; ++d) o.off[d] = offsets[d];
     const auto s = static_cast<cudaStream_t>(stream);
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    const unsigned blocks = static_cast<unsigned>((rows + kThreads - 1) / kThreads);
     if (nb == 1) {
-        spmv_dia_kernel<T, 1><<<dim3(blocks, 1), kThreads, 0, s>>>(bands, x, y, n, 1, o);
+        spmv_dia_kernel<T, 1><<<dim3(blocks, 1), kThreads, 0, s>>>(
+            bands, x, y, rows, row0, bstride, x_base, x_len, 1, o);
     } else {
         const unsigned chunks = static_cast<unsigned>((nb + kCols - 1) / kCols);
         spmv_dia_kernel<T, kCols><<<dim3(blocks, chunks), kThreads, 0, s>>>(
-            bands, x, y, n, nb, o);
+            bands, x, y, rows, row0, bstride, x_base, x_len, nb, o);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int arn_spmv_dia_f32(const float* bands, const float* x, float* y,
-                                long long n, int k, const long long* offsets,
-                                int nb, void* stream) {
-    return launch_dia<float>(bands, x, y, n, k, offsets, nb, stream);
-}
+// The square operator: every row, x of n entries (x_base 0, x_len n).
+#define ARN_DIA_ENTRY(SUFFIX, T)                                                  \
+    extern "C" int arn_spmv_dia_##SUFFIX(const T* bands, const T* x, T* y,        \
+                                         long long n, int k,                      \
+                                         const long long* offsets, int nb,        \
+                                         void* stream) {                          \
+        return launch_dia<T>(bands, x, y, n, k, offsets, nb, n, 0, 0, n, stream); \
+    }                                                                             \
+    extern "C" int arn_spmv_dia_ext_##SUFFIX(                                     \
+        const T* bands, const T* x, T* y, long long rows, int k,                  \
+        const long long* offsets, int nb, long long bstride, long long row0,      \
+        long long x_base, long long x_len, void* stream) {                        \
+        return launch_dia<T>(bands, x, y, rows, k, offsets, nb, bstride, row0,    \
+                             x_base, x_len, stream);                              \
+    }
 
-extern "C" int arn_spmv_dia_f64(const double* bands, const double* x, double* y,
-                                long long n, int k, const long long* offsets,
-                                int nb, void* stream) {
-    return launch_dia<double>(bands, x, y, n, k, offsets, nb, stream);
-}
-
-extern "C" int arn_spmv_dia_c64(const arn::c64* bands, const arn::c64* x, arn::c64* y,
-                                long long n, int k, const long long* offsets,
-                                int nb, void* stream) {
-    return launch_dia<arn::c64>(bands, x, y, n, k, offsets, nb, stream);
-}
-
-extern "C" int arn_spmv_dia_c128(const arn::c128* bands, const arn::c128* x,
-                                 arn::c128* y, long long n, int k,
-                                 const long long* offsets, int nb, void* stream) {
-    return launch_dia<arn::c128>(bands, x, y, n, k, offsets, nb, stream);
-}
+ARN_DIA_ENTRY(f32, float)
+ARN_DIA_ENTRY(f64, double)
+ARN_DIA_ENTRY(c64, arn::c64)
+ARN_DIA_ENTRY(c128, arn::c128)

@@ -49,11 +49,22 @@ from .ops.kernels.spmv_ell import ell_matmat, ell_matvec
 MAX_BANDED_DIAGONALS = 16
 
 
+#: The padded layouts' budget, the JAX package's rule: at most
+#: ``_PADDED_FILL`` times the stored elements, or ``_PADDED_FLOOR``
+#: elements, whichever is larger.
+_PADDED_FILL = 8
+_PADDED_FLOOR = 1 << 24
+
+
+def _padded_budget(stored_elems):
+    return max(_PADDED_FILL * max(stored_elems, 1), _PADDED_FLOOR)
+
+
 def _check_padded_layout(kind, padded_elems, stored_elems, L, degrees):
     """Refuse a padded layout whose zero-fill would dwarf the data (ELL
     pads every row to the largest row degree, so a few dense rows blow it
     up); same rule and message as the JAX package."""
-    if padded_elems <= max(8 * max(stored_elems, 1), 1 << 24):
+    if padded_elems <= _padded_budget(stored_elems):
         return
     mean_deg = float(np.mean(degrees)) if len(degrees) else 0.0
     raise ValueError(
@@ -505,6 +516,102 @@ def _ell_slots(keys, n_keys):
     return order, keys, slot, degrees, L
 
 
+def _split_cap(degrees, n_keys, unit, stored_elems):
+    """The largest slot count ``L_cap`` for which the rows longer than it,
+    each split into ``ceil(d / L_cap)`` virtual rows of ``L_cap`` slots,
+    give a padded layout (``(n_keys + extra rows) * L_cap * unit``
+    elements) within the budget of :func:`_check_padded_layout`; 0 when
+    none does.  Every ``L_cap`` up to ``(budget - stored) / (n_keys *
+    unit)`` fits (the split adds fewer slots than the rows hold), and none
+    above ``budget / (n_keys * unit)``, so only the range between is
+    searched."""
+    budget = _padded_budget(stored_elems)
+    deg = np.sort(np.asarray(degrees, dtype=np.int64))      # ascending
+    per_slot = max(n_keys, 1) * unit
+    sure = max((budget - stored_elems) // per_slot, 0)
+    for cap in range(min(int(deg[-1]) if deg.size else 0, budget // per_slot),
+                     sure, -1):
+        long = deg[np.searchsorted(deg, cap, side="right"):]
+        extra = int((-(-long // cap) - 1).sum())
+        if (n_keys + extra) * cap * unit <= budget:
+            return cap
+    return sure
+
+
+def _split_rows(keys, slot, degrees, n_keys, cap):
+    """Split each row of more than ``cap`` slots into virtual rows of
+    ``cap``: the first ``cap`` entries keep their row, each further ``cap``
+    go to a virtual row ``n_keys + e`` (a row's extra rows consecutive, the
+    rows in order).  Returns ``(vrow, vslot, n_virtual, hub, extra_idx)``:
+    ``hub`` the split rows and ``extra_idx`` (n_hub, k_max) their extra
+    rows' ids less ``n_keys``, padded with ``n_virtual - n_keys`` (the id
+    of an appended zero row)."""
+    extra = torch.clamp(-(-degrees // cap) - 1, min=0)
+    base = torch.cumsum(extra, 0) - extra
+    n_extra = int(extra.sum())
+    vrow = torch.where(slot < cap, keys, n_keys + base[keys] + slot // cap - 1)
+    hub = torch.nonzero(extra).reshape(-1)
+    k_max = int(extra.max()) if hub.numel() else 0
+    k = torch.arange(k_max, device=keys.device)
+    extra_idx = torch.where(k[None, :] < extra[hub][:, None],
+                            base[hub][:, None] + k[None, :], n_extra)
+    return vrow, slot % cap, n_keys + n_extra, hub, extra_idx
+
+
+class SplitRowsOperator:
+    """A format operator whose overlong rows were split into virtual rows,
+    folded back after each product: the materialized adjoint of a matrix
+    with a few much fuller columns (hub columns), which have no padded
+    layout as rows of ``A^H``.
+
+    ``inner`` holds ``n_keys + extra`` (block) rows of at most ``L_cap``
+    slots; a product runs the format's kernel over all of them, then each
+    split row adds the sum of its extra rows, gathered into an ``(n_hub,
+    k_max)`` zero-padded view and summed along it: a fixed order and no
+    atomic adds, so two calls give equal bits.  ``unit`` is the rows a key
+    stands for (the block height of a BSR ``inner``, 1 for ELL) and
+    ``n_rows`` the true row count.
+    """
+
+    def __init__(self, inner, n_keys, unit, n_rows, hub, extra_idx):
+        self.inner, self.n_keys, self.unit, self.n_rows = (
+            inner, n_keys, unit, n_rows)
+        self.hub, self.extra_idx = hub, extra_idx
+
+    @property
+    def shape(self):
+        return (self.n_rows, self.inner.shape[1])
+
+    @property
+    def dtype(self):
+        return self.inner.dtype
+
+    @property
+    def device(self):
+        return self.inner.device
+
+    @property
+    def nnz(self):
+        return self.inner.nnz
+
+    def _fold(self, Yv):
+        b, u, nk = Yv.shape[0], self.unit, self.n_keys
+        Yv = Yv.reshape(b, -1, u)
+        Y = Yv[:, :nk].clone()
+        ext = torch.cat([Yv[:, nk:], Yv.new_zeros((b, 1, u))], dim=1)
+        Y[:, self.hub] += ext[:, self.extra_idx].sum(dim=2)
+        return Y.reshape(b, nk * u)[:, :self.n_rows]
+
+    def matvec(self, x):
+        return self._fold(self.inner.matvec(x)[None])[0]
+
+    def matmat(self, X):
+        return _matmat_by_rows(self, X)
+
+    def matmat_rows(self, Xt):
+        return self._fold(self.inner.matmat_rows(Xt)).contiguous()
+
+
 def _transpose_ell(op):
     n_rows, L = op.data.shape
     n_cols = op.shape[1]
@@ -513,14 +620,27 @@ def _transpose_ell(op):
     rows = torch.arange(n_rows, device=op.device).repeat_interleave(L)[keep]
     order, cols, slot, degrees, LT = _ell_slots(
         op.cols.reshape(-1)[keep].long(), n_cols)
-    _check_padded_layout("ELL", n_cols * LT, int(keep.sum()), LT,
-                         degrees.cpu().numpy())
-    dataT = op.data.new_zeros((n_cols, LT))
-    colsT = torch.zeros((n_cols, LT), dtype=torch.int32, device=op.device)
-    dataT[cols, slot] = data[keep][order].conj()
-    colsT[cols, slot] = rows[order].int()
-    return EllOperator(dataT, colsT, op.nnz_stored,
-                       n_cols=0 if n_cols == n_rows else n_rows)
+    stored = int(keep.sum())
+    deg_host = degrees.cpu().numpy()
+    if n_cols * LT <= _padded_budget(stored):
+        dataT = op.data.new_zeros((n_cols, LT))
+        colsT = torch.zeros((n_cols, LT), dtype=torch.int32, device=op.device)
+        dataT[cols, slot] = data[keep][order].conj()
+        colsT[cols, slot] = rows[order].int()
+        return EllOperator(dataT, colsT, op.nnz_stored,
+                           n_cols=0 if n_cols == n_rows else n_rows)
+    cap = _split_cap(deg_host, n_cols, 1, stored)
+    if cap == 0:
+        _check_padded_layout("ELL", n_cols * LT, stored, LT, deg_host)
+    vrow, vslot, n_virtual, hub, extra_idx = _split_rows(cols, slot, degrees,
+                                                         n_cols, cap)
+    dataT = op.data.new_zeros((n_virtual, cap))
+    colsT = torch.zeros((n_virtual, cap), dtype=torch.int32, device=op.device)
+    dataT[vrow, vslot] = data[keep][order].conj()
+    colsT[vrow, vslot] = rows[order].int()
+    return SplitRowsOperator(EllOperator(dataT, colsT, op.nnz_stored,
+                                         n_cols=n_rows),
+                             n_cols, 1, n_cols, hub, extra_idx)
 
 
 def _transpose_banded(op):
@@ -544,16 +664,30 @@ def _transpose_bsr(op):
     brows = torch.arange(n_brow, device=op.device).repeat_interleave(L)[keep]
     order, bcols, slot, degrees, LT = _ell_slots(
         op.block_cols.reshape(-1)[keep].long(), n_bcol)
-    _check_padded_layout("BSR", n_bcol * LT * r * c, int(keep.sum()) * r * c,
-                         LT, degrees.cpu().numpy())
-    blocksT = op.blocks.new_zeros((n_bcol, LT, c, r))
-    colsT = torch.zeros((n_bcol, LT), dtype=torch.int32, device=op.device)
+    stored = int(keep.sum()) * r * c
+    deg_host = degrees.cpu().numpy()
+    split = n_bcol * LT * r * c > _padded_budget(stored)
+    if split:
+        cap = _split_cap(deg_host, n_bcol, r * c, stored)
+        if cap == 0:
+            _check_padded_layout("BSR", n_bcol * LT * r * c, stored, LT, deg_host)
+        bcols, slot, n_virtual, hub, extra_idx = _split_rows(
+            bcols, slot, degrees, n_bcol, cap)
+        LT = cap
+    else:
+        n_virtual = n_bcol
+    blocksT = op.blocks.new_zeros((n_virtual, LT, c, r))
+    colsT = torch.zeros((n_virtual, LT), dtype=torch.int32, device=op.device)
     blocksT[bcols, slot] = blocks[keep][order].mT.conj()
     colsT[bcols, slot] = brows[order].int()
-    return BsrOperator(blocksT, colsT, op.nnz_stored, n_cols=op.n_rows,
-                       n_rows=op.n_cols,
-                       window=bsr_window(blocksT.cpu().numpy(),
-                                         colsT.cpu().numpy(), device=op.device))
+    window = bsr_window(blocksT.cpu().numpy(), colsT.cpu().numpy(),
+                        device=op.device)
+    if not split:
+        return BsrOperator(blocksT, colsT, op.nnz_stored, n_cols=op.n_rows,
+                           n_rows=op.n_cols, window=window)
+    inner = BsrOperator(blocksT, colsT, op.nnz_stored, n_cols=op.n_rows,
+                        n_rows=n_virtual * c, window=window)
+    return SplitRowsOperator(inner, n_bcol, c, op.n_cols, hub, extra_idx)
 
 
 def adjoint_operator(op):
@@ -562,9 +696,11 @@ def adjoint_operator(op):
     each row's entries in ascending column order) and cached on ``op``.
 
     Its products are the format's kernels, with their fixed reduction
-    order: no atomic adds, so two calls give equal bits.  Raises
-    ``ValueError`` when the transpose has no padded layout (a few dense
-    columns of A are dense rows of A^H)."""
+    order: no atomic adds, so two calls give equal bits.  When a few much
+    fuller columns of A (dense rows of A^H) would break the padded layout's
+    budget, the overlong rows are split and folded back
+    (:class:`SplitRowsOperator`); a matrix whose transpose fits keeps its
+    plain layout.  Raises ``ValueError`` only when no split fits either."""
     if not isinstance(op, _SPARSE_OPERATORS):
         raise TypeError(f"no materialized adjoint for {type(op).__name__}")
     adj = op._cache.get("adjoint")
@@ -731,11 +867,14 @@ def pad_operator(op, n_pad):
 
 def cast_operator(op, dtype):
     """Cast an operator's value arrays to ``dtype`` (torch or NumPy dtype);
-    the identity when already there.  A Gram casts both legs; a
+    the identity when already there.  A Gram casts both legs, an operator
+    with a ``cast(dtype)`` method casts itself; a
     :class:`CallableOperator` cannot be cast (its closure owns the dtype)."""
     dt = torch_dtype(dtype)
     if op.dtype == dt:
         return op
+    if hasattr(op, "cast"):
+        return op.cast(dt)
     if isinstance(op, BandedOperator):
         return dataclasses.replace(op, bands=op.bands.to(dt))
     if isinstance(op, EllOperator):

@@ -25,6 +25,10 @@ _BSR_WINDOW = ("arnoldi_tpu_torch/csrc/spmv_bsr.cu",
 KERNELS = {
     "spmv_dia": (spmv_banded.banded_matvec, *_DIA),
     "spmv_dia_cols": (spmv_banded.banded_matmat, *_DIA),
+    # the shard form: a row range of a row block against an x window (the
+    # ring-halo and all-gather SpMV under a device mesh)
+    "spmv_dia_ext": (spmv_banded.banded_matvec_ext, *_DIA),
+    "spmv_dia_ext_cols": (spmv_banded.banded_matmat_ext, *_DIA),
     "spmv_ell": (spmv_ell.ell_matvec, *_ELL),
     "spmv_ell_cols": (spmv_ell.ell_matmat, *_ELL),
     "spmv_bsr": (spmv_bsr.bsr_matvec, *_BSR),

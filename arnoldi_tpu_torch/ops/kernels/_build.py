@@ -43,6 +43,10 @@ _i32 = ctypes.c_int
 _SIGNATURES = {
     # bands, x, y, n, k, offsets (host int64[k]), nb, stream
     "arn_spmv_dia": [_p, _p, _p, _i64, _i32, _p, _i32, _p],
+    # bands, x, y, rows, k, offsets, nb, bands row stride, row0, x_base,
+    # x_len, stream
+    "arn_spmv_dia_ext": [_p, _p, _p, _i64, _i32, _p, _i32, _i64, _i64, _i64,
+                         _i64, _p],
     # data, cols, x, y, n_rows, n_cols, L, nb, stream
     "arn_spmv_ell": [_p, _p, _p, _p, _i64, _i64, _i32, _i32, _p],
     # blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb, stream

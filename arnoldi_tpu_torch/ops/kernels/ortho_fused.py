@@ -138,14 +138,20 @@ project_update_norm.launches = 0
 project_update_norm.dtype_launches = {}
 
 
-def cgs2_fused(Vt, w, n_active, *, tol=1e-8, eta=None):
+def cgs2_fused(Vt, w, n_active, *, tol=1e-8, eta=None, mesh=None):
     """Twice-is-enough CGS from the fused passes (``cgs2_pallas``'s
     composition): returns ``(c1 + c2, w2, beta, beta < tol)`` with ``h``
     zero past ``n_active`` and ``beta`` a 0-d tensor.  ``eta`` is accepted
-    for the ortho-kernel signature and unused (both passes always run)."""
-    c1 = masked_project(Vt, w, n_active)
+    for the ortho-kernel signature and unused (both passes always run).
+    Under a row ``mesh`` (``Vt`` and ``w`` this rank's columns) each pass's
+    coefficients and the final squared norm are summed over the ranks
+    (``mesh.all_reduce``) before they are used."""
+    def reduce(t):
+        return t if mesh is None else mesh.all_reduce(t)
+
+    c1 = reduce(masked_project(Vt, w, n_active))
     w1, _ = project_update_norm(Vt, w, c1, n_active)
-    c2 = masked_project(Vt, w1, n_active)
+    c2 = reduce(masked_project(Vt, w1, n_active))
     w2, norm_sq = project_update_norm(Vt, w1, c2, n_active)
-    beta = torch.sqrt(norm_sq)
+    beta = torch.sqrt(reduce(norm_sq))
     return c1 + c2, w2, beta, beta < tol

@@ -6,6 +6,12 @@ rows of a ``(b, n)`` array) launch the hand-written kernel
 ``csrc/spmv_banded.cu``; on CPU tensors they run
 :func:`banded_matvec_plain`, the plain PyTorch version that the CPU tests
 use and that the card's smoke run compares the kernel against.
+
+The shard form, :func:`banded_matvec_ext` and :func:`banded_matmat_ext`
+(``spmv_dia_ext``), runs a row range of a row block's bands against a
+window of ``x``: the sharded operators of ``parallel/`` (the ring halo's
+extended window, the all-gather's whole vector), with its plain version
+:func:`banded_matvec_ext_plain`.
 """
 
 import ctypes
@@ -82,3 +88,83 @@ def banded_matmat(bands, X, offsets):
 
 banded_matmat.launches = 0
 banded_matmat.dtype_launches = {}
+
+
+# -- the shard form --------------------------------------------------------
+
+def banded_matvec_ext_plain(bands, x, offsets, *, x_base, row0=0, rows=None):
+    """Plain PyTorch shard product: for ``t < rows`` and ``i = row0 + t``,
+    ``y[t] = sum_d bands[d, i] * x[i + x_base + offsets[d]]``, the terms
+    whose x index leaves ``[0, x_len)`` left out (``x_len = x.shape[-1]``).
+    ``x`` is (x_len,) or (b, x_len); ``rows`` defaults to the bands' row
+    count less ``row0``."""
+    n_band = bands.shape[1]
+    rows = n_band - row0 if rows is None else int(rows)
+    x_len = x.shape[-1]
+    y = torch.zeros((*x.shape[:-1], rows), dtype=bands.dtype,
+                    device=bands.device)
+    for d, off in enumerate(offsets):
+        s0 = row0 + x_base + int(off)
+        lo, hi = max(0, -s0), min(rows, x_len - s0)
+        if lo < hi:
+            y[..., lo:hi] += (bands[d, row0 + lo:row0 + hi]
+                              * x[..., s0 + lo:s0 + hi])
+    return y
+
+
+def _launch_ext(kernel, wrapper, bands, x, offsets, x_base, row0, rows):
+    offsets = tuple(int(o) for o in offsets)
+    cuda = _build.on_cuda(kernel, bands, x)
+    k, n_band = bands.shape
+    rows = n_band - row0 if rows is None else int(rows)
+    if len(offsets) != k or not (0 <= row0 and 0 <= rows
+                                 and row0 + rows <= n_band):
+        raise ValueError(f"{kernel}: bands {tuple(bands.shape)}, {len(offsets)} "
+                         f"offsets, rows [{row0}, {row0 + rows})")
+    if not cuda:
+        return banded_matvec_ext_plain(bands, x, offsets, x_base=x_base,
+                                       row0=row0, rows=rows)
+    if k > MAX_OFFSETS:
+        raise ValueError(f"{kernel}: the kernel takes at most {MAX_OFFSETS} "
+                         f"diagonals, got {k}")
+    nb = x.shape[0] if x.ndim == 2 else 1
+    y = torch.empty((*x.shape[:-1], rows), dtype=x.dtype, device=x.device)
+    offs = (ctypes.c_longlong * max(k, 1))(*offsets)
+    fn = _build.kernel_fn("arn_spmv_dia_ext", x.dtype)
+    guard, stream = _build.launch_context(x.device)
+    with guard:
+        rc = fn(bands.data_ptr(), x.data_ptr(), y.data_ptr(), rows, k, offs, nb,
+                n_band, row0, int(x_base), x.shape[-1], stream)
+    _build.check(rc, kernel)
+    _build.count_launch(wrapper, x.dtype)
+    return y
+
+
+def banded_matvec_ext(bands, x, offsets, *, x_base, row0=0, rows=None):
+    """The DIA shard matvec (``spmv_dia_ext``): rows ``[row0, row0 + rows)``
+    of the (k, n_band) bands of a row block against the x window ``x``
+    (x_len,), row i reading ``x[i + x_base + off]`` (see
+    :func:`banded_matvec_ext_plain`); returns (rows,).  The CUDA kernel
+    for CUDA tensors, the plain version for CPU tensors."""
+    if x.ndim != 1:
+        raise ValueError(f"spmv_dia_ext: x must be (x_len,), got {tuple(x.shape)}")
+    return _launch_ext("spmv_dia_ext", banded_matvec_ext, bands, x, offsets,
+                       x_base, row0, rows)
+
+
+banded_matvec_ext.launches = 0
+banded_matvec_ext.dtype_launches = {}
+
+
+def banded_matmat_ext(bands, X, offsets, *, x_base, row0=0, rows=None):
+    """The b-column shard form (``spmv_dia_ext_cols``): ``X`` (b, x_len),
+    returns (b, rows); each band value read once for all b columns."""
+    if X.ndim != 2:
+        raise ValueError(f"spmv_dia_ext_cols: X must be (b, x_len), got "
+                         f"{tuple(X.shape)}")
+    return _launch_ext("spmv_dia_ext_cols", banded_matmat_ext, bands, X,
+                       offsets, x_base, row0, rows)
+
+
+banded_matmat_ext.launches = 0
+banded_matmat_ext.dtype_launches = {}

@@ -32,49 +32,75 @@ from .kernels.ortho_fused import cgs2_fused, masked_project, project_update_norm
 M_SQRT1_2 = math.sqrt(0.5)
 
 
-def _project(Vt, w, n_active):
-    c = masked_project(Vt, w, n_active)
+def _reduce(t, mesh):
+    """The sum of ``t`` over the mesh's ranks (``t`` without a mesh)."""
+    return t if mesh is None else mesh.all_reduce(t)
+
+
+def vector_norm(w, mesh=None):
+    """``||w||`` as a 0-d tensor; under a mesh the norm of the whole vector
+    whose rows the ranks hold (the local squares summed over the ranks)."""
+    if mesh is None:
+        return torch.linalg.vector_norm(w)
+    sq = torch.vdot(w, w).real if w.is_complex() else torch.dot(w, w)
+    return torch.sqrt(mesh.all_reduce(sq))
+
+
+def _project(Vt, w, n_active, mesh=None):
+    c = _reduce(masked_project(Vt, w, n_active), mesh)
     w, norm_sq = project_update_norm(Vt, w, c, n_active)
-    return c, w, torch.sqrt(norm_sq)
+    return c, w, torch.sqrt(_reduce(norm_sq, mesh))
 
 
-def cgs_dgks(Vt, w, n_active, *, tol=1e-8, eta=M_SQRT1_2):
+def cgs_dgks(Vt, w, n_active, *, tol=1e-8, eta=M_SQRT1_2, mesh=None):
     """Classical Gram-Schmidt with one DGKS-controlled second pass, taken
-    when ``beta1 < eta * ||w||``; ``eta <= 0`` never takes it."""
-    c1, w1, beta1 = _project(Vt, w, n_active)
+    when ``beta1 < eta * ||w||``; ``eta <= 0`` never takes it.
+
+    Under a ``mesh`` (``Vt`` and ``w`` this rank's columns) the projection
+    coefficients and the squared norms are summed over the ranks, the two
+    norms of the first pass in one all-reduce; the kernels are unchanged."""
+    c1 = _reduce(masked_project(Vt, w, n_active), mesh)
+    w1, norm1_sq = project_update_norm(Vt, w, c1, n_active)
     if eta > 0:
         # ||w|| from the update pass over no rows: w' = w, plus its norm.
         _, beta_before_sq = project_update_norm(Vt, w, c1, 0)
+        if mesh is not None:
+            norm1_sq, beta_before_sq = mesh.all_reduce(
+                torch.stack([norm1_sq, beta_before_sq]))
+        beta1 = torch.sqrt(norm1_sq)
         if bool(beta1 < eta * torch.sqrt(beta_before_sq)):
-            c2, w1, beta1 = _project(Vt, w1, n_active)
+            c2, w1, beta1 = _project(Vt, w1, n_active, mesh)
             c1 = c1 + c2
+    else:
+        beta1 = torch.sqrt(_reduce(norm1_sq, mesh))
     return c1, w1, beta1, beta1 < tol
 
 
-def mgs_dgks(Vt, w, n_active, *, tol=1e-8, eta=M_SQRT1_2):
+def mgs_dgks(Vt, w, n_active, *, tol=1e-8, eta=M_SQRT1_2, mesh=None):
     """Modified Gram-Schmidt with one DGKS-controlled second pass, taken
     when ``beta1 < eta * ||w||``; ``eta <= 0`` never takes it.
 
     Sequential by construction: a Python loop over the ``n_active`` rows,
-    one dot and one axpy each.  Kept for parity and cross-validation with
-    the classical kernels, so it has no kernel of its own.
+    one dot and one axpy each (each dot summed over the ranks under a
+    ``mesh``).  Kept for parity and cross-validation with the classical
+    kernels, so it has no kernel of its own.
     """
     n_active = int(n_active)
     h = torch.zeros(Vt.shape[0], dtype=Vt.dtype, device=Vt.device)
 
     def one_pass(w):
         for i in range(n_active):
-            c = torch.vdot(Vt[i], w)
+            c = _reduce(torch.vdot(Vt[i], w), mesh)
             w = w - c * Vt[i]
             h[i] += c
         return w
 
-    beta_before = torch.linalg.vector_norm(w)
+    beta_before = vector_norm(w, mesh)
     w = one_pass(w)
-    beta = torch.linalg.vector_norm(w)
+    beta = vector_norm(w, mesh)
     if eta > 0 and bool(beta < eta * beta_before):
         w = one_pass(w)
-        beta = torch.linalg.vector_norm(w)
+        beta = vector_norm(w, mesh)
     return h, w, beta, beta < tol
 
 
@@ -82,7 +108,7 @@ def mgs_dgks(Vt, w, n_active, *, tol=1e-8, eta=M_SQRT1_2):
 cgs2 = cgs2_fused
 
 
-def block_cgs2(Vt, W, n_active, *, tol=1e-8):
+def block_cgs2(Vt, W, n_active, *, tol=1e-8, mesh=None):
     """Block classical Gram-Schmidt (two passes) + CholQR2 within the block.
 
     Counterpart of ``block_cgs2`` in ``arnoldi_tpu/ops/ortho.py``.  The b
@@ -98,6 +124,9 @@ def block_cgs2(Vt, W, n_active, *, tol=1e-8):
         never read.
     W : (b, n) block to orthogonalize (rows are vectors).
     n_active : valid leading rows of ``Vt``.
+    mesh : under a row mesh ``Vt`` and ``W`` are this rank's columns; the
+        projections and the Gram matrices are summed over the ranks, so
+        every rank factors the same Gram and gets the same C, R and flag.
 
     Returns
     -------
@@ -111,9 +140,9 @@ def block_cgs2(Vt, W, n_active, *, tol=1e-8):
     n_active = int(n_active)
     V = Vt[:n_active]
     # conj is the identity on real tensors; C = conj(V) W^T, W - C^T V.
-    C1 = V.conj() @ W.T                   # (n_active, b)
+    C1 = _reduce(V.conj() @ W.T, mesh)    # (n_active, b)
     W = W - C1.T @ V
-    C2 = V.conj() @ W.T
+    C2 = _reduce(V.conj() @ W.T, mesh)
     W = W - C2.T @ V
     C = torch.zeros((Vt.shape[0], W.shape[0]), dtype=Vt.dtype, device=Vt.device)
     C[:n_active] = C1 + C2
@@ -123,7 +152,7 @@ def block_cgs2(Vt, W, n_active, *, tol=1e-8):
     eye = torch.eye(b, dtype=Vt.dtype, device=Vt.device)
 
     def cholqr(W):
-        G = W @ W.mH
+        G = _reduce(W @ W.mH, mesh)
         # Shift relative to the block's own scale (floored at tiny so an
         # all-zero block stays finite), so a small but healthy block is
         # still normalized; rank deficiency is read off the diagonal.
@@ -163,13 +192,17 @@ ORTHO_KERNELS = {
 }
 
 
-def resolve_ortho(name_or_fn):
+def resolve_ortho(name_or_fn, mesh=None):
+    """The ortho kernel a name (or a callable) stands for; under a ``mesh``
+    it is called with ``mesh=`` (a callable must take it)."""
     if callable(name_or_fn):
-        return name_or_fn
-    try:
-        return ORTHO_KERNELS[name_or_fn]
-    except KeyError:
-        raise ValueError(
-            f"Unknown orthogonalization kernel {name_or_fn!r}; expected one of "
-            f"{sorted(ORTHO_KERNELS)} or a callable"
-        ) from None
+        fn = name_or_fn
+    else:
+        try:
+            fn = ORTHO_KERNELS[name_or_fn]
+        except KeyError:
+            raise ValueError(
+                f"Unknown orthogonalization kernel {name_or_fn!r}; expected one "
+                f"of {sorted(ORTHO_KERNELS)} or a callable"
+            ) from None
+    return fn if mesh is None else partial(fn, mesh=mesh)

@@ -37,7 +37,7 @@ def _any_breakdown(flags, like):
 
 
 def arnoldi_expand(op, Vt, H, invariant_tol=None, *, start_dim=0, max_dim=None,
-                   ortho="cgs_dgks", stop_at_breakdown=True):
+                   ortho="cgs_dgks", stop_at_breakdown=True, mesh=None):
     """Extend the Arnoldi factorization ``(Vt, H)`` of ``op`` in place.
 
     Rows ``0..start_dim`` of ``Vt`` are valid (row ``start_dim`` is the next
@@ -54,6 +54,11 @@ def arnoldi_expand(op, Vt, H, invariant_tol=None, *, start_dim=0, max_dim=None,
     every step runs, and the third value is a 0-d bool tensor on the
     device, True when a step broke down (the factorization is then not
     valid), for a caller that discards the workspace on breakdown.
+
+    Under a row ``mesh`` ``op`` is this rank's sharded operator and ``Vt``
+    its columns; the ortho kernel sums its projections and norms over the
+    ranks, so ``H``, the norms and the breakdown flags are the same on
+    every rank, and so is the control flow.
     """
     m = Vt.shape[0] - 1
     n = op.shape[0]
@@ -71,7 +76,7 @@ def arnoldi_expand(op, Vt, H, invariant_tol=None, *, start_dim=0, max_dim=None,
                          f"{start_dim}, {max_dim}")
     if invariant_tol is None:
         invariant_tol = default_invariant_tol(op.dtype)
-    ortho_fn = resolve_ortho(ortho)
+    ortho_fn = resolve_ortho(ortho, mesh)
 
     flags = []
     for j in range(start_dim, max_dim):
@@ -90,7 +95,7 @@ def arnoldi_expand(op, Vt, H, invariant_tol=None, *, start_dim=0, max_dim=None,
 
 
 def block_arnoldi_expand(op, Vt, H, invariant_tol, *, start_block, n_blocks, b,
-                         stop_at_breakdown=True):
+                         stop_at_breakdown=True, mesh=None):
     """Block Arnoldi expansion of ``(Vt, H)`` in place: b vectors per step.
 
     Counterpart of ``_block_expand_jit`` (its window ``_block_expand_window``).
@@ -108,7 +113,8 @@ def block_arnoldi_expand(op, Vt, H, invariant_tol, *, start_block, n_blocks, b,
     Returns ``(Vt, H, n_done_blocks)``; ``n_done_blocks < n_blocks`` iff a
     step broke down.  ``stop_at_breakdown=False`` reads no flag, runs every
     step and returns a 0-d bool tensor in its place, as
-    :func:`arnoldi_expand` does.
+    :func:`arnoldi_expand` does; ``mesh`` as there (``block_cgs2`` sums its
+    projections and Gram matrices over the ranks).
     """
     n = op.shape[0]
     if op.shape[1] != n:
@@ -126,7 +132,8 @@ def block_arnoldi_expand(op, Vt, H, invariant_tol, *, start_block, n_blocks, b,
     for j in range(start_block, n_blocks):
         lo, mid, hi = j * b, (j + 1) * b, (j + 2) * b
         W = op.matmat_rows(Vt[lo:mid])
-        C, Q, R, breakdown = block_cgs2(Vt, W, mid, tol=invariant_tol)
+        C, Q, R, breakdown = block_cgs2(Vt, W, mid, tol=invariant_tol,
+                                        mesh=mesh)
         if not stop_at_breakdown:
             flags.append(breakdown)
         elif bool(breakdown):

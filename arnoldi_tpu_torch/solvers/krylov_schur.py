@@ -37,8 +37,14 @@ the device path (scalar and block), the host tier and the float32 phase of
 a refined solve; a resumed solve repeats the unbroken one's matvecs,
 restarts and T.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
-item): ``mesh``, and with it the sharded checkpoint.
+``mesh=`` (an :class:`~..parallel.Mesh`) runs the solve SPMD over a row
+mesh of ``torch.distributed`` ranks, as the JAX package's ``mesh=`` runs
+it over a device mesh (``arnoldi_tpu/solvers/krylov_schur.py:364-403``):
+each rank holds its row block of the operator (padded to a multiple of
+``size * row_granularity``) and of the basis, the projections and norms are
+summed over the ranks, the small dense work is replicated, and no solve
+runs on the host tier.  Snapshots are then written per rank
+(``utils/checkpoint.py``) and resume on any rank count.
 """
 
 import os
@@ -48,11 +54,15 @@ import torch
 
 from ..device import (check_matmul_precision, is_inexact, numpy_dtype,
                       solver_dtype, work_dtype)
-from ..linop import _not_ported, as_operator, cast_operator
+from ..linop import as_operator, cast_operator
 from ..ops import dense_tier
 from ..ops.ortho import block_cgs2
+from ..parallel.mesh import Mesh, local_rows
+from ..parallel.sharded import mesh_operator, start_rows, valid_rows
 from ..utils import sorting
-from ..utils.checkpoint import RestartCheckpoint, load_checkpoint, save_checkpoint
+from ..utils.checkpoint import (RestartCheckpoint, checkpoint_is_sharded,
+                                load_checkpoint, load_checkpoint_sharded,
+                                save_checkpoint, save_checkpoint_sharded)
 from ..utils.history import History
 from ..utils.profiling import phase_clock
 from ..utils.random import rand_normalized_vector
@@ -86,31 +96,55 @@ def _schur_blocks(T):
     return starts, sizes, in_block
 
 
-def _operator_and_dtype(A, host_tier, device):
-    """``(op, n, dtype)``: the operator on its device, or for the host tier
-    no operator (the workspace holds ``A`` itself), and ``A``'s dtype
-    promoted by :func:`~..device.solver_dtype` (an integer ``A`` is built
-    or cast in float64)."""
+def check_mesh(A, mesh):
+    """The mesh of a solve: ``mesh``, else that of a sharded ``A``, else
+    None; raises ``TypeError`` for a ``mesh`` that is not a
+    :class:`~..parallel.Mesh`."""
+    if mesh is None:
+        return getattr(A, "mesh", None) if getattr(A, "sharded", False) else None
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh= takes an arnoldi_tpu_torch.parallel.Mesh "
+                        f"(make_mesh), got {type(mesh).__name__}")
+    return mesh
+
+
+def _operator_and_dtype(A, host_tier, device, mesh=None):
+    """``(op, n, dtype, n_solve)``: the operator on its device, or for the
+    host tier no operator (the workspace holds ``A`` itself), and ``A``'s
+    dtype promoted by :func:`~..device.solver_dtype` (an integer ``A`` is
+    built or cast in float64).  Under a ``mesh`` the operator is this
+    rank's sharded block (:func:`~..parallel.sharded.mesh_operator`), ``n``
+    the unpadded and ``n_solve`` the padded row count; else ``n_solve =
+    n``."""
     a_dtype = getattr(A, "dtype", None)
     if host_tier:
         if A.shape[0] != A.shape[1]:
             raise ValueError(f"need a square operator, got {A.shape}")
-        return None, A.shape[0], solver_dtype(a_dtype)
+        return None, A.shape[0], solver_dtype(a_dtype), A.shape[0]
     # A floating or complex A keeps its dtype (no copy); an integer one is
     # built in, or cast to, its promoted dtype.
     exact = a_dtype is not None and not is_inexact(a_dtype)
-    op = as_operator(A, dtype=solver_dtype(a_dtype) if exact else None,
-                     device=device)
+    dtype = solver_dtype(a_dtype) if exact else None
+    if mesh is not None:
+        op, n, n_solve = mesh_operator(A, mesh, device, dtype)
+        return op, n, op.dtype, n_solve
+    op = as_operator(A, dtype=dtype, device=device)
     if op.shape[1] != op.shape[0]:
         raise ValueError(f"need a square operator, got {op.shape}")
-    return op, op.shape[0], op.dtype
+    return op, op.shape[0], op.dtype, op.shape[0]
 
 
-def _start_rows(n, b, wdtype, dev, *, v0, generator, start_block, tol):
+def _start_rows(n, b, wdtype, dev, *, v0, generator, start_block, tol,
+                mesh=None, n_solve=None):
     """The (b, n) orthonormal start block on ``dev``: ``v0`` (or a unit
     Gaussian vector from ``generator``) and, for b > 1, b - 1 further
     Gaussian rows from ``generator`` (or ``start_block`` in place of both),
-    orthonormalized by ``block_cgs2``, which keeps row 0 parallel to v0."""
+    orthonormalized by ``block_cgs2``, which keeps row 0 parallel to v0.
+
+    Under a ``mesh`` every rank draws and normalizes the whole vector from
+    the same generator, pads it to ``n_solve`` (the further rows are drawn
+    over ``n_solve``, as the JAX package draws them) and keeps its columns:
+    the (b, n_local) block, orthonormalized over the mesh."""
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     if start_block is not None and b == 1:
@@ -120,9 +154,16 @@ def _start_rows(n, b, wdtype, dev, *, v0, generator, start_block, tol):
     else:
         v0 = torch.as_tensor(v0).to(device=dev, dtype=wdtype)
         v0 = v0 / torch.linalg.vector_norm(v0)
+    if mesh is not None:
+        if start_block is not None:
+            start_block = torch.nn.functional.pad(
+                torch.as_tensor(start_block).to(device=dev, dtype=wdtype),
+                (0, n_solve - n))
+        n = n_solve
+        v0 = torch.nn.functional.pad(v0, (0, n_solve - v0.shape[0]))
     if b == 1:
-        return v0[None, :]
-    if start_block is None:
+        W0 = v0[None, :]
+    elif start_block is None:
         extra = torch.randn((b - 1, n), generator=generator, dtype=wdtype).to(dev)
         W0 = torch.cat([v0[None, :], extra])
     else:
@@ -130,17 +171,21 @@ def _start_rows(n, b, wdtype, dev, *, v0, generator, start_block, tol):
         if W0.shape != (b, n):
             raise ValueError(f"_start_block must be ({b}, {n}), got "
                              f"{tuple(W0.shape)}")
+    if mesh is not None:
+        W0 = start_rows(W0[0, :], W0[1:] if b > 1 else None, n_solve, mesh)
+    if b == 1:
+        return W0
     # No active rows: block_cgs2 reads none of its first argument.
-    return block_cgs2(W0, W0, 0, tol=tol)[1]
+    return block_cgs2(W0, W0, 0, tol=tol, mesh=mesh)[1]
 
 
-def _workspace(A, op, device, max_dim, b, ortho, clock, wdtype):
+def _workspace(A, op, device, max_dim, b, ortho, clock, wdtype, mesh=None):
     """The host tier's workspace (in ``wdtype``) for ``op=None``, else the
-    device one."""
+    device one (this rank's columns under a ``mesh``)."""
     if op is None:
         return HostWorkspace(A, max_dim, ortho, clock, device,
                              dtype=numpy_dtype(wdtype))
-    return DeviceWorkspace(op, max_dim, b, ortho, clock)
+    return DeviceWorkspace(op, max_dim, b, ortho, clock, mesh=mesh)
 
 
 def partial_schur(
@@ -227,25 +272,33 @@ def partial_schur(
         eigenvalues of multiplicity up to b, and reads the basis once per b
         matvecs.  Repeated saturation of the block expansion without
         convergence raises ``ValueError``.
-    mesh : accepted for signature parity; anything but None raises
-        ``NotImplementedError``.
+    mesh : an :class:`arnoldi_tpu_torch.parallel.Mesh` (``make_mesh``): every
+        rank of the mesh calls ``partial_schur`` with the same arguments and
+        runs the solve on its row block.  ``A`` is then a format operator or
+        SciPy/NumPy matrix (built on ``device``, default the mesh's,
+        padded and sharded with an all-gather of x:
+        ``parallel.shard_operator``) or a sharded operator of this mesh
+        (``parallel.halo_matvec_closure``, the ring halo), whose mesh is
+        the default.  Anything else raises ``TypeError``.
     checkpoint_path : optional path of a restart-boundary snapshot
         (``utils/checkpoint.py``), written every ``checkpoint_every``
         restarts (default 1) after the truncate+expand that follows the
         boundary: the head rows ``V[:p+b]`` (one device-to-host copy), H
-        and the counters.  A refined solve snapshots its float32 phase.
+        and the counters; under a mesh one shard file a rank and rank 0's
+        metadata.  A refined solve snapshots its float32 phase.
     resume : if True and ``checkpoint_path`` exists, continue from it (a
         snapshot of either package); restarts count on from the snapshot's,
         so ``max_restarts`` bounds the total.  Without the file the solve
         starts fresh.  The locked prefix is restored under ``lock="hard"``
-        with b = 1 only.
+        with b = 1 only.  A sharded snapshot needs a mesh, of any size.
     _start_block : private, for tests: a (b, n) block replacing v0 and the
         b - 1 drawn rows of the block driver's start block, which is then
         orthonormalized as the drawn one would be.
 
     Returns
     -------
-    schur_vecs : (n, nev) tensor Q on the device.
+    schur_vecs : (n, nev) tensor Q on the device; under a mesh this rank's
+        rows of it (``parallel.gather_rows`` joins them).
     schur_mat : (nev, nev) tensor T, quasi-upper-triangular, ordered by
         ``sort_function`` (nev+1 when a 2x2 block straddles the cut);
         upper triangular for a complex work dtype.
@@ -255,15 +308,14 @@ def partial_schur(
     b = int(block_size)
     if b < 1:
         raise ValueError(f"block_size must be positive, got {block_size}")
-    if mesh is not None:
-        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 1")
+    mesh = check_mesh(A, mesh)
     if lock not in ("soft", "hard"):
         raise ValueError(f"lock={lock!r}: expected 'soft' or 'hard'")
     refinement.check_refine(refine)
 
-    host_tier = refine != "dw" and uses_host_tier(
+    host_tier = mesh is None and refine != "dw" and uses_host_tier(
         A, device=device, dtype=dtype, block_size=b, ortho=ortho, v0=v0)
-    op, n, op_dtype = _operator_and_dtype(A, host_tier, device)
+    op, n, op_dtype, n_solve = _operator_and_dtype(A, host_tier, device, mesh)
     tol = (default_invariant_tol(op_dtype) if stopping_criterion is None
            else float(stopping_criterion))
     if sort_function is None:
@@ -310,9 +362,9 @@ def partial_schur(
     prev_pa = 0
     restart0 = start_dim0 = k_lock = total_matvecs = 0
     with clock("workspace_setup"):
-        ws = _workspace(A, op, device, max_dim, b, ortho, clock, wdtype)
+        ws = _workspace(A, op, device, max_dim, b, ortho, clock, wdtype, mesh)
         if resume and checkpoint_path and os.path.exists(checkpoint_path):
-            ck = _load_snapshot(checkpoint_path, max_dim, b, n)
+            ck = _load_snapshot(checkpoint_path, max_dim, b, n_solve, mesh)
             ws.set_start(torch.from_numpy(np.asarray(ck.V[:ck.pa + b])))
             ws.set_h(ck.H_hp)
             H_trunc_hp = ck.H_hp[:ck.pa + b, :ck.pa].copy()
@@ -327,7 +379,8 @@ def partial_schur(
         else:
             ws.set_start(_start_rows(n, b, wdtype, dev, v0=v0,
                                      generator=generator,
-                                     start_block=_start_block, tol=tol))
+                                     start_block=_start_block, tol=tol,
+                                     mesh=mesh, n_solve=n_solve))
     m = ws.expand(start_dim0, tol)
     total_matvecs += m - start_dim0
 
@@ -513,13 +566,17 @@ def partial_schur(
             # The expansion only appended rows past pa + b: the head rows of
             # the expanded workspace are the restart-boundary state.
             with clock("checkpoint"):
-                save_checkpoint(checkpoint_path, RestartCheckpoint(
+                ck = RestartCheckpoint(
                     V=ws.V[:pa + b], H_hp=H_new, pa=pa, restart=restart + 1,
                     total_matvecs=total_matvecs,
                     matvecs=history.matvecs.copy(),
                     restarts=history.restarts.copy(),
                     residual_trace=list(history.residual_trace),
-                    k_lock=k_lock))
+                    k_lock=k_lock)
+                if mesh is None:
+                    save_checkpoint(checkpoint_path, ck)
+                else:
+                    save_checkpoint_sharded(checkpoint_path, ck, mesh)
         total_matvecs += m_new - pa
         m = m_new
 
@@ -528,41 +585,54 @@ def partial_schur(
         raise ValueError("Has not converged !")
     if do_refine and tol_target < tol:
         with clock("refine.start_vector"):
-            v0r = refinement.refinement_start_vector(ws.V, nev_ret)
+            v0r = refinement.refinement_start_vector(ws.V, nev_ret, mesh)
         del ws, op     # free the work-dtype basis before float64 allocates
         Q, T, r_extra, mv_extra = refinement.continue_refined(
             op_src, v0r, nev, max_dim=max_dim, tol=tol_target,
             sort_function=sort_function, max_restarts=max_restarts,
-            clock=clock)
+            clock=clock, mesh=mesh)
         history.total = total_matvecs + mv_extra
         history.matvecs[:] = history.total
         history.restarts[:] = history.restarts + r_extra
         history.residual_trace.append(float(tol_target))
         history.phases = clock.report()
+        if mesh is not None:
+            Q = valid_rows(Q, n, n_solve, mesh)
         return Q, T, history
     history.phases = clock.report()
     schur_vecs = ws.rows(nev_ret)     # back to the (n, nev) contract
+    if mesh is not None:
+        schur_vecs = valid_rows(schur_vecs, n, n_solve, mesh)
     schur_mat = torch.from_numpy(T_out.astype(np_wdtype)).to(schur_vecs.device)
     return schur_vecs, schur_mat, history
 
 
-def _load_snapshot(path, max_dim, b, n):
-    """A single-file snapshot that fits this solve's workspace (the JAX
-    package's checks and messages); a sharded one raises."""
+def _load_snapshot(path, max_dim, b, n, mesh=None):
+    """A snapshot that fits this solve's workspace (the JAX package's
+    checks and messages), ``n`` the (padded) row count; under a ``mesh``
+    with ``V`` this rank's columns.  A sharded snapshot needs a mesh."""
     ck = load_checkpoint(path)
-    if ck.V is None:
-        raise _not_ported("a sharded checkpoint (a snapshot without V)",
-                          "Queue 1 item 1")
+    sharded = checkpoint_is_sharded(path)
+    if sharded or ck.V is None:       # a mesh snapshot's metadata (no V)
+        if mesh is None:
+            raise AssertionError(
+                "sharded checkpoint: pass a mesh (resume is mesh-elastic — "
+                "any device count whose padding covers n)")
+        ck = load_checkpoint_sharded(path, mesh, n_solve=n)
     if ck.H_hp.shape != (max_dim + b, max_dim):
         raise AssertionError(
             f"checkpoint H shape {ck.H_hp.shape} does not match workspace "
             f"{(max_dim + b, max_dim)}")
     # Older snapshots (or a full-workspace writer) hold all max_dim + b
     # rows: the head rows are sliced out.
-    if not (ck.V.shape[0] >= ck.pa + b and ck.V.shape[1] == n):
+    n_cols = n // mesh.size if sharded else n
+    if not (ck.V.shape[0] >= ck.pa + b and ck.V.shape[1] == n_cols):
         raise AssertionError(
             f"checkpoint V shape {ck.V.shape} incompatible with head rows "
-            f"{(ck.pa + b, n)}")
+            f"{(ck.pa + b, n_cols)}")
+    if mesh is not None and not sharded:
+        row0, row1 = local_rows(n, mesh)
+        ck.V = ck.V[:, row0:row1]
     return ck
 
 

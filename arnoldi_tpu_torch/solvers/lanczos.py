@@ -39,36 +39,41 @@ import torch
 from ..utils.history import History
 from ..device import check_matmul_precision, work_dtype
 from ..linop import cast_operator
-from ..ops.ortho import M_SQRT1_2, cgs_dgks
+from ..ops.ortho import M_SQRT1_2, cgs_dgks, vector_norm
+from ..parallel.sharded import valid_rows
 from ..utils.profiling import phase_clock
 from . import refine as refinement
 from .decomposition import default_invariant_tol
-from ..linop import _not_ported
-from .krylov_schur import _operator_and_dtype, _start_rows, _workspace
+from .krylov_schur import (_operator_and_dtype, _start_rows, _workspace,
+                           check_mesh)
 from .workspace import DeviceWorkspace, uses_host_tier
 
 __all__ = ["partial_eigh", "lanczos_selective_ortho",
            "make_lanczos_selective_ortho", "SYM_SORTS"]
 
 
-def _selective_ortho(Vt, w, n_active, *, n_locked, tol=1e-8, eta=M_SQRT1_2):
+def _selective_ortho(Vt, w, n_active, *, n_locked, tol=1e-8, eta=M_SQRT1_2,
+                     mesh=None):
     """One pass against rows ``[0, min(n_locked, n_active))`` and the last
     two active rows ``[n_active - 2, n_active)``, each row once where the
     two ranges overlap (the JAX kernel's mask is their union), then a full
     :func:`cgs_dgks` pass when ``beta1 < eta * ||w||``.  The pass is two
     ``torch.matmul`` pairs over contiguous row slices, as the JAX kernel's
-    is a masked ``jnp.matmul``."""
+    is a masked ``jnp.matmul``.  Under a ``mesh`` the coefficients and
+    norms are summed over the ranks."""
     n_active = int(n_active)
     lo = min(n_locked, n_active)
     hi = max(n_active - 2, lo)
-    beta_before = torch.linalg.vector_norm(w)
+    beta_before = vector_norm(w, mesh)
     h = torch.zeros(Vt.shape[0], dtype=Vt.dtype, device=Vt.device)
     h[:lo] = Vt[:lo].conj() @ w
     h[hi:n_active] = Vt[hi:n_active].conj() @ w
+    if mesh is not None:
+        h = mesh.all_reduce(h)
     w = w - h[:lo] @ Vt[:lo] - h[hi:n_active] @ Vt[hi:n_active]
-    beta = torch.linalg.vector_norm(w)
+    beta = vector_norm(w, mesh)
     if bool(beta < eta * beta_before):
-        h2, w, beta, _ = cgs_dgks(Vt, w, n_active, tol=tol, eta=eta)
+        h2, w, beta, _ = cgs_dgks(Vt, w, n_active, tol=tol, eta=eta, mesh=mesh)
         h = h + h2
     return h, w, beta, beta < tol
 
@@ -100,7 +105,7 @@ def _device_order(which, theta, m):
 
 
 def _trl_device_loop(op, V0, tol, *, nev, p, max_dim, max_restarts, which,
-                     ortho, clock):
+                     ortho, clock, mesh=None):
     """Thick-restart Lanczos with the whole restart loop on ``op``'s device.
 
     Returns ``(ws, theta, converged, healthy, restarts, trace)``: after a
@@ -113,7 +118,7 @@ def _trl_device_loop(op, V0, tol, *, nev, p, max_dim, max_restarts, which,
     """
     b = V0.shape[0]
     m = max_dim
-    ws = DeviceWorkspace(op, max_dim, b, ortho, clock)
+    ws = DeviceWorkspace(op, max_dim, b, ortho, clock, mesh=mesh)
     ws.set_start(V0)
 
     def expand(start):
@@ -201,8 +206,11 @@ def partial_eigh(
         unless the solve is on the host tier, uses the selective kernel or
         a callable ``ortho``); a breakdown there falls back to the
         host-orchestrated loop from the same start block.
-    mesh : accepted for signature parity; anything but None raises
-        ``NotImplementedError``.
+    mesh : a row mesh (:func:`~arnoldi_tpu_torch.partial_schur`'s
+        ``mesh``): the host-orchestrated loop runs on every rank over its
+        row block, as the JAX package runs it under a mesh (the device loop
+        only when ``device_loop=True``), and the eigenvectors come back as
+        this rank's rows.
 
     Returns ``(eigenvalues, eigenvectors, history)``: the eigenvalues as a
     real NumPy array, wanted-first (descending for "LA"), and the
@@ -212,16 +220,16 @@ def partial_eigh(
     b = int(block_size)
     if b < 1:
         raise ValueError(f"block_size must be positive, got {block_size}")
-    if mesh is not None:
-        raise _not_ported("mesh= (sharded solves)", "Queue 1 item 1")
+    mesh = check_mesh(A, mesh)
     sort_function = _sym_sort(which)
     if max_restarts <= 0:
         raise ValueError(f"max_restarts must be positive, got {max_restarts}")
     refinement.check_refine(refine)
 
-    host_tier = device_loop is not True and refine != "dw" and uses_host_tier(
-        A, device=device, dtype=dtype, block_size=b, ortho=ortho, v0=v0)
-    op, n, op_dtype = _operator_and_dtype(A, host_tier, device)
+    host_tier = (mesh is None and device_loop is not True and refine != "dw"
+                 and uses_host_tier(A, device=device, dtype=dtype,
+                                    block_size=b, ortho=ortho, v0=v0))
+    op, n, op_dtype, n_solve = _operator_and_dtype(A, host_tier, device, mesh)
     tol = (default_invariant_tol(op_dtype) if stopping_criterion is None
            else float(stopping_criterion))
     if max_dim is None:
@@ -253,8 +261,8 @@ def partial_eigh(
     ortho_fn = lanczos_selective_ortho if selective else ortho
     use_device_loop = (
         device_loop if device_loop is not None
-        else (not selective and which in SYM_SORTS and isinstance(ortho, str)
-              and not host_tier))
+        else (mesh is None and not selective and which in SYM_SORTS
+              and isinstance(ortho, str) and not host_tier))
 
     history = History.from_k(nev)
     clock = phase_clock()
@@ -265,18 +273,21 @@ def partial_eigh(
         Q, T, r_extra, mv_extra = refinement.continue_refined(
             op_src, v0r, nev, max_dim=max_dim, tol=tol_target,
             sort_function=sort_function, max_restarts=max_restarts,
-            clock=clock)
+            clock=clock, mesh=mesh)
         history.total = history.total_matvecs + mv_extra
         history.matvecs[:] = history.total
         history.restarts[:] = history.restarts + r_extra
         history.phases = clock.report()
+        if mesh is not None:
+            Q = valid_rows(Q, n, n_solve, mesh)
         return torch.diagonal(T)[:nev].cpu().numpy(), Q[:, :nev], history
 
     # The start block stays apart from the workspaces, so the fallback
     # after a device-loop breakdown starts from it again.
     with clock("workspace_setup"):
         V0 = _start_rows(n, b, wdtype, dev, v0=v0, generator=generator,
-                         start_block=_start_block, tol=tol)
+                         start_block=_start_block, tol=tol, mesh=mesh,
+                         n_solve=n_solve)
 
     if use_device_loop:
         loop_ortho = ortho if isinstance(ortho, str) and not selective \
@@ -285,7 +296,7 @@ def partial_eigh(
             ws, theta, conv, healthy, r, trace = _trl_device_loop(
                 op, V0, tol, nev=nev, p=p, max_dim=max_dim,
                 max_restarts=max_restarts, which=which.upper(),
-                ortho=loop_ortho, clock=clock)
+                ortho=loop_ortho, clock=clock, mesh=mesh)
         if healthy:
             history.residual_trace = trace
             history.restarts[:] = r
@@ -296,14 +307,17 @@ def partial_eigh(
                 raise ValueError("Has not converged !")
             if do_refine and tol_target < tol:
                 with clock("refine.start_vector"):
-                    v0r = refinement.refinement_start_vector(ws.V, nev)
+                    v0r = refinement.refinement_start_vector(ws.V, nev, mesh)
                 del ws, op    # free the work-dtype basis before float64 allocates
                 return refined(v0r)
             history.phases = clock.report()
-            return theta[:nev].cpu().numpy(), ws.rows(nev), history
+            vectors = ws.rows(nev)
+            if mesh is not None:
+                vectors = valid_rows(vectors, n, n_solve, mesh)
+            return theta[:nev].cpu().numpy(), vectors, history
         del ws   # breakdown: the host-orchestrated loop from V0, counts from 0
 
-    ws = _workspace(A, op, device, max_dim, b, ortho_fn, clock, wdtype)
+    ws = _workspace(A, op, device, max_dim, b, ortho_fn, clock, wdtype, mesh)
     ws.set_start(V0)
     m = ws.expand(0, tol)
     total_matvecs = m
@@ -382,8 +396,11 @@ def partial_eigh(
         raise ValueError("Has not converged !")
     if do_refine and tol_target < tol:
         with clock("refine.start_vector"):
-            v0r = refinement.refinement_start_vector(ws.V, nev)
+            v0r = refinement.refinement_start_vector(ws.V, nev, mesh)
         del ws, op    # free the work-dtype basis before float64 allocates
         return refined(v0r)
     history.phases = clock.report()
-    return np.real(theta_final[:nev]), ws.rows(nev), history
+    vectors = ws.rows(nev)
+    if mesh is not None:
+        vectors = valid_rows(vectors, n, n_solve, mesh)
+    return np.real(theta_final[:nev]), vectors, history

@@ -28,6 +28,7 @@ import torch
 
 from ..linop import FORMAT_OPERATORS, CallableOperator, cast_operator
 from ..ops import dense_tier
+from ..ops.ortho import vector_norm
 from ..utils.profiling import NULL_CLOCK
 from .decomposition import default_invariant_tol
 from .workspace import DeviceWorkspace
@@ -53,9 +54,10 @@ def check_refine(refine):
 
 def has_exact_operator(op):
     """True when a refined solve of ``op`` can continue on exact values: a
-    format operator, a :class:`CallableOperator` with ``fn_f64``, or a Gram
+    format operator, an operator with a ``cast(dtype)`` method (it casts
+    its own values), a :class:`CallableOperator` with ``fn_f64``, or a Gram
     whose legs are format operators."""
-    return (isinstance(op, FORMAT_OPERATORS)
+    return (isinstance(op, FORMAT_OPERATORS) or hasattr(op, "cast")
             or (isinstance(op, CallableOperator) and op.fn_f64 is not None)
             or getattr(op, "has_dw", False))
 
@@ -81,7 +83,7 @@ def exact_operator(op):
     """The operator a refined solve continues on: ``op`` at its own values
     in float64 (a float32 operator is promoted exactly, so the float32
     matrix is the target), a callable's ``fn_f64``, or a Gram's legs at
-    their own values."""
+    their own values; an operator with a ``cast`` method casts itself."""
     if isinstance(op, CallableOperator):
         if op.fn_f64 is None:
             raise TypeError(
@@ -92,23 +94,24 @@ def exact_operator(op):
     return cast_operator(op, torch.float64)
 
 
-def refinement_start_vector(Vt, nev_ret):
+def refinement_start_vector(Vt, nev_ret, mesh=None):
     """The continuation's start vector: the first ``nev_ret`` basis rows
     mixed with weights 1/(i+1) (fixed weights keep symmetric components from
     cancelling), normalized, on ``Vt``'s device in its dtype; row 0 alone
-    if the mix is zero.  No host read."""
+    if the mix is zero.  No host read.  Under a ``mesh`` ``Vt`` is this
+    rank's columns and the norms are the whole vector's."""
     rows = torch.as_tensor(Vt)[:nev_ret]
     w = 1.0 / (1.0 + torch.arange(rows.shape[0], dtype=rows.dtype,
                                   device=rows.device))
     v0 = (w[:, None] * rows).sum(dim=0)
-    nrm = torch.linalg.vector_norm(v0)
-    fallback = rows[0] / torch.clamp(torch.linalg.vector_norm(rows[0]),
+    nrm = vector_norm(v0, mesh)
+    fallback = rows[0] / torch.clamp(vector_norm(rows[0], mesh),
                                      min=torch.finfo(rows.dtype).tiny)
     return torch.where(nrm > 0, v0 / torch.where(nrm > 0, nrm, 1.0), fallback)
 
 
 def refine_schur(op64, v0, nev, *, max_dim, p, tol, sort_function,
-                 max_restarts=100, clock=None):
+                 max_restarts=100, clock=None, mesh=None):
     """Krylov-Schur in float64 on ``op64`` from ``v0`` until the ``nev``
     wanted pairs all reach relative residual ``tol``: the loop of
     ``refine_schur_dw`` (``arnoldi_tpu/solvers/refine.py:238-423``) in
@@ -122,7 +125,9 @@ def refine_schur(op64, v0, nev, *, max_dim, p, tol, sort_function,
     Returns ``(Q, T, n_restarts, n_matvecs)``: Q (n, nev_ret) and T
     (nev_ret, nev_ret) float64 tensors on ``op64``'s device (nev_ret = nev
     + 1 when a 2x2 block straddles nev), as the JAX version returns them
-    on the host.  ``clock`` times the whole as ``refine.continue``."""
+    on the host.  ``clock`` times the whole as ``refine.continue``.  Under a
+    row ``mesh`` ``op64`` is this rank's sharded operator, ``v0`` and Q
+    its rows."""
     from .krylov_schur import _schur_blocks
 
     clock = NULL_CLOCK if clock is None else clock
@@ -132,9 +137,9 @@ def refine_schur(op64, v0, nev, *, max_dim, p, tol, sort_function,
                          f"{max_dim}, {n}")
     inv_tol = default_invariant_tol(torch.float64)
     with clock("refine.continue"):
-        ws = DeviceWorkspace(op64, max_dim, 1, "cgs2", clock)
+        ws = DeviceWorkspace(op64, max_dim, 1, "cgs2", clock, mesh=mesh)
         v0 = torch.as_tensor(v0).to(device=op64.device, dtype=torch.float64)
-        ws.set_start((v0 / torch.linalg.vector_norm(v0))[None, :])
+        ws.set_start((v0 / vector_norm(v0, mesh))[None, :])
         m = ws.expand(0, inv_tol)
         total_matvecs = m
         for restart in range(max_restarts):
@@ -195,7 +200,7 @@ def refine_schur(op64, v0, nev, *, max_dim, p, tol, sort_function,
 
 
 def continue_refined(op, v0, nev, *, max_dim, tol, sort_function,
-                     max_restarts, clock):
+                     max_restarts, clock, mesh=None):
     """The float64 continuation of a converged float32 phase on ``op`` (the
     caller's operator, before its float32 cast) from ``v0``: JAX's compact
     subspace, ``max_dim_r = min(max_dim, max(2 nev + 6, 16))`` with ``p_r =
@@ -206,4 +211,4 @@ def continue_refined(op, v0, nev, *, max_dim, tol, sort_function,
     p_r = min(nev + 5, max_dim_r - 1)
     return refine_schur(exact_operator(op), v0, nev, max_dim=max_dim_r,
                         p=p_r, tol=tol, sort_function=sort_function,
-                        max_restarts=max_restarts, clock=clock)
+                        max_restarts=max_restarts, clock=clock, mesh=mesh)

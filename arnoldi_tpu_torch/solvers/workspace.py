@@ -77,14 +77,20 @@ def _truncate(V, V_alt, Qp, m, p, carry):
 
 
 class DeviceWorkspace:
-    """The factorization on ``op``'s device, in ``op``'s dtype."""
+    """The factorization on ``op``'s device, in ``op``'s dtype.
+
+    Under a row ``mesh`` ``op`` is this rank's sharded operator: ``V``
+    holds the rank's columns of the basis (``op.shape`` is local), ``H`` is
+    replicated, the expansions sum their projections and norms over the
+    ranks, and the truncation stays a local gemm with no communication."""
 
     host = False
 
-    def __init__(self, op, max_dim, b, ortho, clock):
+    def __init__(self, op, max_dim, b, ortho, clock, mesh=None):
         n = op.shape[0]
         self.op, self.max_dim, self.b, self.ortho, self.clock = (
             op, max_dim, b, ortho, clock)
+        self.mesh = mesh
         self.np_dtype = numpy_dtype(op.dtype)
         self.V = torch.zeros((max_dim + b, n), dtype=op.dtype, device=op.device)
         self.V_alt = torch.empty_like(self.V)
@@ -111,12 +117,12 @@ class DeviceWorkspace:
                 self.V, self.H, jb = block_arnoldi_expand(
                     self.op, self.V, self.H, tol, start_block=start // self.b,
                     n_blocks=self.max_dim // self.b, b=self.b,
-                    stop_at_breakdown=stop_at_breakdown)
+                    stop_at_breakdown=stop_at_breakdown, mesh=self.mesh)
                 return jb * self.b if stop_at_breakdown else jb
             self.V, self.H, m = arnoldi_expand(
                 self.op, self.V, self.H, tol, start_dim=start,
                 max_dim=self.max_dim, ortho=self.ortho,
-                stop_at_breakdown=stop_at_breakdown)
+                stop_at_breakdown=stop_at_breakdown, mesh=self.mesh)
             return m
 
     def h_host(self):

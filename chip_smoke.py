@@ -178,17 +178,54 @@ shift-invert solve finds (``PERF.md`` §2).
     against complex ARPACK (computed in the reference worker);
 37. solve VB: RB's operator in complex64 to tol 1e-5, scalar and b = 8 (the
     complex64 gather forms), within 1e-4 of solve RB's values;
-38. ``svds`` of the phased reflected banded-1024 matrix as complex128 BSR-8,
-    k = 5, LM, tol 1e-8, m = 40: the adjoint leg is the materialized
-    conjugate transpose, BSR through the same kernels (DB's own transpose
-    has no padded layout: its clipped edge block-columns hold ~64 blocks;
-    the script prints the refusal), checked against ARPACK's ``svds`` and
-    the triplets;
+38. ``svds`` of DB's phased banded-1024 matrix and of its reflected form
+    as complex128 BSR-8, k = 5, LM, tol 1e-8, m = 40: the adjoint leg is
+    the materialized conjugate transpose, BSR through the same kernels
+    (DB's clipped edge block-columns hold ~64 blocks, so its transpose
+    splits those rows into virtual rows folded back after each product:
+    ``linop.SplitRowsOperator``; the split is printed), each checked against
+    ARPACK's ``svds`` and the triplets;
 39. checkpoint/resume: solve A with ``max_restarts=50``,
     ``checkpoint_every=25`` into ``build/chip_smoke/`` must raise
     ``ValueError``; resumed from its snapshot to convergence it must count
     solve A's matvecs and restarts, with T within 1e-12 of solve A's;
-    the snapshot's size and write times printed.
+    the snapshot's size and write times printed;
+40. the DIA shard form (``spmv_dia_ext``, ``spmv_dia_ext_cols``) against its
+    plain version at the 2-rank shard shapes of phases 42-44, both ranks,
+    b = 1 and 8 (the block against its halo window, its first and its last
+    h rows alone, and the block against the whole vector as the all-gather
+    runs it): laplace_2d(724)'s (262,088 rows, h = 724) in float64 and
+    complex128 and solve E9's 9-band layout (524,288 rows, h = 4) in
+    float64; timed (laplace, float64) beside its bound and cuSPARSE's CSR
+    product of the shard's window, every device time over copies of the
+    inputs that pass the L2 (``cold``); then the rectangular
+    ELL and BSR-8 shards of the scattered matrix (halo 2^14 rows, 2^11 block
+    rows) against their plain versions, the BSR kernel printed;
+41. solve A's configuration through ``sharded_partial_schur`` over a
+    one-rank NCCL process group in this process with the ring-halo DIA
+    operator (``halo_matvec_closure``): an all-reduce of one term is the
+    identity, so it must count solve A's 2900 matvecs with T within 1e-12
+    of solve A's;
+42. two ranks sharing the card over gloo (spawned processes, the kernels
+    loaded from this process's build; gloo's all-reduce and all-gather
+    take CUDA tensors, its point-to-point does not, so the ring exchange
+    stages through pinned host buffers): solve A's configuration over the DIA halo
+    (analytic spectrum, matvecs printed beside solve A's), solve B's over
+    the ELL halo and over the all-gather, solve C's over the BSR-8 halo
+    (ARPACK), ``partial_eigh`` on solve I's (cgs2; analytic spectrum) and
+    a symmetric 9-band 2^20-row matrix with separated top eigenvalues at
+    ``block_size=8``, LR, k = 5, m = 40 over the DIA halo (the shard form's
+    b-column kernel; against ``eigsh``); each prints its backend, kernel
+    and the bytes a rank receives a matvec, and both ranks must count the
+    same matvecs;
+43. solve M's configuration over the 2-rank ELL halo: float32, then the
+    float64 continuation on the halo operator's own values, to 1e-8,
+    against ARPACK;
+44. the sharded checkpoint: solve A's configuration on 2 ranks cut at
+    restart 50 (a snapshot every 25: rank 0's metadata and a shard file a
+    rank, sizes printed), resumed on 2 ranks (the unbroken 2-rank run's
+    matvecs and T within 1e-12) and on one rank in this process (the
+    analytic spectrum).
 After phase 34 (outside every counted window) ``spmv_dia_cols`` on
 laplace_3d(64) and ``spmv_ell_cols`` on laplace_3d(48) as ELL are held
 against their plain versions at the filter's widths (b = 32, 64, each
@@ -221,17 +258,21 @@ and both CGS2 kernels on the fourth, ``spmv_dia_cols`` and ``spmv_dia`` in
 float64, ``spmv_ell_cols`` in float32 and float64, ``spmv_ell`` in float32
 and both CGS2 kernels on the fifth, every complex128 form of both BSR
 kernels and the complex64 gather forms on the sixth (zeroed before phase
-35, read after phase 39), and each solve must have launched the kernels of
-its operator in its dtype.
+35, read after phase 39), both forms of ``spmv_dia_ext``, ELL, the BSR
+kernel of solve C's shards and both CGS2 kernels on the sharded path
+(zeroed before phase 41, read after phase 44, the spawned ranks' launches
+added), and each solve must have launched the kernels of its operator in
+its dtype.
 The line before the last is a JSON object with each kernel's route,
 source, launches, error, times, bound and library time (and a record of
 each complex form, named ``kernel:dtype``, whose launches are the complex
 path's, and of ``spmv_dia_cols`` and ``spmv_ell_cols`` at the filter's
 widths, named ``kernel:filter``, whose launches are phases 32-34's in its
 dtype, and of each complex BSR form, named ``kernel:dtype`` too, whose
-launches are phases 35-39's); the last line is ``{"ok": true, "device":
-{...}}``. Needs no
-network and imports nothing of JAX.
+launches are phases 35-39's; ``spmv_dia_ext`` and ``spmv_dia_ext_cols``
+count the sharded path's launches, phases 41-44); the last line is
+``{"ok": true, "device": {...}}``. Needs no network and imports nothing
+of JAX.
 """
 
 import contextlib
@@ -249,6 +290,7 @@ F32_LIMIT = 1e-5    # normwise relative error, float32 and complex64
 # play no part).  The real timed cases are float64, the main path's dtype; a
 # complex multiply-add is 8 flops.
 HBM_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
 FP64_FLOPS_PER_S = 34e12
 FP32_FLOPS_PER_S = 67e12
 
@@ -278,36 +320,55 @@ def cuda_ms(fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=20, flush=None):
+def device_ms(fn, reps=20):
     """Mean profiler device time of ``fn()`` a call: the durations of the
     kernels and copies it launched, summed.  Unlike ``cuda_ms`` it leaves
     out the host's pace between launches, which sets the event time of
-    kernels shorter than a launch's wrapper time.  With ``flush`` (a buffer
-    larger than the 50 MB L2) zeroed before each call, ``fn`` reads its
-    inputs from device memory, as it does in a solve; the zeroing's own
-    device time, profiled alone, is taken off.  None where the profiler
-    recorded no device event."""
+    kernels shorter than a launch's wrapper time.  Give a kernel whose
+    inputs fit the L2 as ``cold(kernel, *inputs)``.  None where the
+    profiler recorded no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def per_call(body):
-        body()
-        sync()
-        for _ in range(3):   # one profile on the H100 once recorded no device event
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    body()
-                sync()
-            us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-                     if ev.device_type == DeviceType.CUDA)
-            if us > 0:
-                return us / 1e3 / reps
-        return None
+    fn()
+    sync()
+    for _ in range(3):   # one profile on the H100 once recorded no device event
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / reps
+    return None
 
-    if flush is None:
-        return per_call(fn)
-    both, alone = per_call(lambda: (flush.zero_(), fn())), per_call(flush.zero_)
-    return None if both is None or alone is None else both - alone
+
+def tensor_bytes(t):
+    """Bytes ``t`` holds: a dense tensor's elements, a CSR tensor's
+    values and indices."""
+    import torch
+
+    if t.layout == torch.sparse_csr:
+        return sum(tensor_bytes(u) for u in (t.values(), t.col_indices(),
+                                             t.crow_indices()))
+    return t.numel() * t.element_size()
+
+
+def cold(fn, *inputs):
+    """``fn`` (which takes ``inputs``) as a function of no arguments that
+    cycles through copies of ``inputs``, the caller's first, enough to pass
+    twice the card's L2 together.  Called back to back, as ``device_ms``
+    calls it, each call then reads its inputs from device memory, as a
+    solve's call does (the basis streams through L2 between two products),
+    and not from the L2 the call before left them in."""
+    import itertools
+
+    per = sum(tensor_bytes(t) for t in inputs)
+    copies = [inputs] + [tuple(t.clone() for t in inputs)
+                         for _ in range(-(-2 * L2_BYTES // per))]
+    turn = itertools.cycle(copies)
+    return lambda: fn(*next(turn))
 
 
 def rel_err(got, want):
@@ -380,10 +441,12 @@ class KernelRecord:
         self.library_dev_ms = None  # that call's profiler device time
         self.library = "none"       # that call, or why there is none
 
-    def time(self, kernel, plain, flush=None):
-        """Time the kernel (CUDA events and profiler device time) and its
-        plain version."""
-        self.ms, self.dev_ms = cuda_ms(kernel), device_ms(kernel, flush=flush)
+    def time(self, kernel, plain, cold_kernel=None):
+        """Time the kernel (CUDA events; profiler device time, of
+        ``cold_kernel`` where given: the kernel over ``cold`` copies) and
+        its plain version."""
+        self.ms = cuda_ms(kernel)
+        self.dev_ms = device_ms(kernel if cold_kernel is None else cold_kernel)
         self.plain_ms = cuda_ms(plain)
 
     def set_bound(self, nbytes, flops):
@@ -392,15 +455,21 @@ class KernelRecord:
         rate = (FP32_FLOPS_PER_S if self.dtype in (torch.float32, torch.complex64)
                 else FP64_FLOPS_PER_S)
         self.bound_ms, self.bound_by = bound(nbytes, flops, rate)
+        if self.dev_ms is not None and self.dev_ms < self.bound_ms:
+            # No kernel beats its bound: such a time read part of the
+            # inputs from L2, so it says nothing of the kernel.
+            print(f"  device time {self.dev_ms:.4f} ms under the bound "
+                  f"{self.bound_ms:.4f} ms: not kept")
+            self.dev_ms = None
 
-    def time_library(self, label, fn, want, flush=None):
+    def time_library(self, label, fn, want, cold_fn=None):
         """Time ``fn`` (one PyTorch call, operands built beforehand) as this
         kernel's yardstick, by CUDA events and by the profiler's device time
-        (with ``flush`` as the kernel's was taken), after checking it
-        computes the same values."""
+        (of ``cold_fn`` where given, as the kernel's was taken), after
+        checking it computes the same values."""
         rel, _ = rel_err(fn(), want)
         self.library, self.library_ms = label, cuda_ms(fn)
-        self.library_dev_ms = device_ms(fn, flush=flush)
+        self.library_dev_ms = device_ms(fn if cold_fn is None else cold_fn)
         dev = ("device not measured" if self.library_dev_ms is None
                else f"device {self.library_dev_ms:.4f} ms")
         print(f"  library {label}: {self.library_ms:.4f} ms, {dev} (rel err "
@@ -448,17 +517,23 @@ def phase_kernels(mats):
             # Its 29 MB fit the 50 MB L2, where back-to-back launches would
             # find them; in a solve the CGS2 pass between two launches
             # streams the basis through L2, so the device time is taken cold.
-            flush = torch.empty(2**23, dtype=torch.float64, device=dev)
-            r.time(lambda: spmv_banded.banded_matvec(op.bands, x, op.offsets),
+
+            def kernel(bands=op.bands, x=x):
+                return spmv_banded.banded_matvec(bands, x, op.offsets)
+
+            def library(A, x=x):
+                return A @ x
+
+            r.time(kernel,
                    lambda: spmv_banded.banded_matvec_plain(op.bands, x, op.offsets),
-                   flush=flush)
+                   cold(kernel, op.bands, x))
             n = op.shape[0]
             r.set_bound(op.bands.numel() * 8 + 2 * n * 8, 2 * op.bands.numel())
             A_csr = csr_tensor(mats["laplace"], dtype, dev)
-            r.time_library("A_csr @ x (cuSPARSE SpMV)", lambda: A_csr @ x,
+            r.time_library("A_csr @ x (cuSPARSE SpMV)", lambda: library(A_csr),
                            spmv_banded.banded_matvec_plain(op.bands, x, op.offsets),
-                           flush=flush)
-            del A_csr, flush
+                           cold(library, A_csr, x))
+            del A_csr
 
     for label, A in (("scattered 2^20", mats["scattered"]),
                      ("mark(1000)", mats["mark"]),
@@ -586,7 +661,8 @@ def phase_kernels(mats):
     phase_gather_edges(rec, gen)
     sync()
     for name, r in rec.items():
-        print_time(name, r)
+        if name not in ("spmv_dia_ext", "spmv_dia_ext_cols"):   # phase 40's
+            print_time(name, r)
     return rec
 
 
@@ -1234,8 +1310,12 @@ def phase_hermitian(mats, counts, refs, device="cuda"):
     wall_l2 = time.perf_counter() - t0
     report_solve("solve L, mark(100) LR", hist_l2, wall_l2, counts,
                  host_tier=True)
+    # ARPACK at tol 1e-12: at 1e-8 its own error on mark(100)'s clustered
+    # values ranged from 1.7e-10 to 1.25e-9 with its start vector (SciPy
+    # 1.18 on an H100 host), where this solve's is 1.1e-10.
     check_arpack("solve L, mark(100)", A, Q, T,
-                 eigs(A, 5, which="LR", tol=1e-8, return_eigenvectors=False))
+                 eigs(A, 5, which="LR", tol=1e-12, ncv=40,
+                      return_eigenvectors=False))
     hosts.append((hist_l2, Q))
     for hist, out in hosts:
         if out.device.type != torch.device(device).type:
@@ -1591,8 +1671,9 @@ def complex_reference(kind, n):
     reflected one, "svds" the five largest singular values of the latter;
     for solve Z, "Z" the ten largest-real eigenvalues of the (real)
     scattered matrix; for solve DB, "DB" the five largest-real eigenvalues
-    of the phased banded-1024 matrix, and "svds_bsr" the five largest
-    singular values of its reflected form (phase 38).
+    of the phased banded-1024 matrix, "svds_db" its five largest singular
+    values and "svds_bsr" those of its reflected form (phase 38); for
+    phase 42, "E9" the five largest eigenvalues of ``separated_banded``.
     Run in a worker process (``start_references``): each builds its matrix
     from the seeds the solves use."""
     import numpy as np
@@ -1616,6 +1697,12 @@ def complex_reference(kind, n):
         ref = np.sort(scipy_svds(phased(reflected_scattered(n, seed=2, bandwidth=1024)),
                                  5, solver="arpack", tol=1e-10,
                                  return_singular_vectors=False))
+    elif kind == "E9":
+        ref = eigsh(separated_banded(n), 5, which="LA", tol=1e-10, ncv=20,
+                    return_eigenvectors=False)
+    elif kind == "svds_db":
+        ref = np.sort(scipy_svds(phased(window_matrix(n)), 5, solver="arpack",
+                                 tol=1e-10, return_singular_vectors=False))
     else:
         ref = np.sort(scipy_svds(phased(reflected_scattered(n)), 5, solver="arpack",
                                  tol=1e-10, return_singular_vectors=False))
@@ -1664,7 +1751,8 @@ def start_references(n, side):
 
     pool = multiprocessing.get_context("spawn").Pool(1, initializer=_one_blas_thread)
     references = {kind: pool.apply_async(complex_reference, (kind, n))
-                  for kind in ("R", "T", "svds", "Z", "DB", "svds_bsr")}
+                  for kind in ("R", "T", "svds", "Z", "DB", "svds_db",
+                               "svds_bsr", "E9")}
     references["pencil"] = pool.apply_async(pencil_reference, (side,))
     return pool, references
 
@@ -1710,7 +1798,6 @@ def phase_complex_kernels(mats, gen, device="cuda"):
     from arnoldi_tpu_torch.ops.kernels import ortho_fused, spmv_banded, spmv_ell
 
     dev = torch.device(device)
-    flush = torch.empty(2**23, dtype=torch.float64, device=dev)
     dia0 = BandedOperator.from_scipy(mats["gauge"], device=dev)
     ell0 = EllOperator.from_scipy(mats["phased"], device=dev)
     herm0 = EllOperator.from_scipy(mats["hermitian"], device=dev)
@@ -1730,21 +1817,25 @@ def phase_complex_kernels(mats, gen, device="cuda"):
             fn = spmv_banded.banded_matvec if nb == 1 else spmv_banded.banded_matmat
             r = rec[name]
 
-            def kernel(fn=fn, arg=arg):
-                return fn(op.bands, arg, op.offsets)
+            def kernel(bands=op.bands, arg=arg, fn=fn):
+                return fn(bands, arg, op.offsets)
 
             def plain(arg=arg):
                 return spmv_banded.banded_matvec_plain(op.bands, arg, op.offsets)
 
+            rhs = arg if nb == 1 else arg.T.contiguous()
+
+            def library(A=A_csr, rhs=rhs):
+                return A @ rhs
+
             r.check(f"DIA gauge laplace_2d(724) b={nb}", dtype, kernel(), plain())
-            r.time(kernel, plain, flush=flush)
+            r.time(kernel, plain, cold(kernel, op.bands, arg))
             r.set_bound(op.bands.numel() * item + 2 * nb * n * item,
                         8 * op.bands.numel() * nb)
-            rhs = arg if nb == 1 else arg.T.contiguous()
             r.time_library(f"A_csr @ {'x' if nb == 1 else 'Xt'} (cuSPARSE "
                            f"{'SpMV' if nb == 1 else 'SpMM'}, {tag})",
-                           lambda rhs=rhs: A_csr @ rhs,
-                           plain() if nb == 1 else plain().T, flush=flush)
+                           library, plain() if nb == 1 else plain().T,
+                           cold(library, A_csr, rhs))
         if not torch.equal(spmv_banded.banded_matmat(op.bands, X, op.offsets)[3],
                            spmv_banded.banded_matvec(op.bands, X[3].contiguous(),
                                                      op.offsets)):
@@ -2055,8 +2146,8 @@ def phase_complex(mats, references, counts, dcounts, refs, device="cuda"):
     # ncv = 40: at ARPACK's default (11) its iteration on this clustered
     # end of the spectrum can settle on a set that skips one of the five
     # largest real parts.
-    check_arpack("solve W", Aw, Q, T,
-                 eigs(Aw, 5, which="LR", tol=1e-8, ncv=40, return_eigenvectors=False))
+    check_arpack("solve W", Aw, Q, T,      # tol 1e-12: see solve L's reference
+                 eigs(Aw, 5, which="LR", tol=1e-12, ncv=40, return_eigenvectors=False))
     rows.append(("W", hist_w, wall_w))
     del Q
 
@@ -3011,51 +3102,60 @@ def phase_complex_bsr(mats, references, counts, dcounts, refs, device="cuda"):
         del Q
     del op_rb
 
-    print("phase 38: svds of the phased reflected banded-1024 matrix as complex128 "
-          "BSR-8, k=5, LM, tol 1e-8, m=40: Lanczos on A^H A, A^H the "
-          "conjugate-transposed BSR")
-    from arnoldi_tpu_torch.linop import adjoint_operator
+    print("phase 38: svds of DB's phased banded-1024 matrix and of its reflected "
+          "form as complex128 BSR-8, k=5, LM, tol 1e-8, m=40: Lanczos on A^H A, "
+          "A^H the conjugate-transposed BSR")
+    from arnoldi_tpu_torch.linop import SplitRowsOperator, adjoint_operator
 
-    # The block budget: DB's matrix clips its rows at the edges, so its
-    # first and last block-columns hold ~64 blocks; its transpose padded to
-    # that would store 16x its blocks, and _transpose_bsr refuses it.
-    try:
-        adjoint_operator(op_db)
-        print("  DB's operator: its conjugate transpose has a padded layout")
-    except ValueError as e:
-        print(f"  DB's operator: no padded layout for its transpose ({str(e)[:120]}...)")
+    # DB's matrix clips its rows at the edges, so its first and last
+    # block-columns hold ~64 blocks: its transpose splits those rows into
+    # virtual rows and folds them back (SplitRowsOperator); the reflected
+    # form's transpose keeps the plain layout.
+    for label, A_sv, op_sv, key in (
+            ("svds_db", A_db, op_db, "svds_db"),
+            ("svds_bsr", mats["phased_window_reflect"], None, "svds_bsr")):
+        if op_sv is None:
+            op_sv = bsr(A_sv, "svds")
+        before = dcounts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        U, s, Vh, hist = svds(op_sv, 5, which="LM", tol=1e-8, ncv=40, dtype=c128,
+                              return_history=True)
+        sync()
+        wall = time.perf_counter() - t0
+        report_solve(f"BSR svds ({label})", hist, wall, counts)
+        adj = adjoint_operator(op_sv)
+        inner = adj.inner if isinstance(adj, SplitRowsOperator) else adj
+        if isinstance(adj, SplitRowsOperator):
+            print(f"  A^H split: {adj.hub.numel()} hub block-rows into "
+                  f"{inner.blocks.shape[0] - adj.n_keys} extra block-rows of "
+                  f"{inner.blocks.shape[1]} slots, folded back")
+        print(f"  A^H: BsrOperator blocks {tuple(inner.blocks.shape)}, window "
+              f"{inner.window.width} -> "
+              f"{'window' if inner.uses_window else 'gather'} kernel")
+        check_launched_dtype(f"BSR svds ({label})", before, dcounts(),
+                             ("spmv_bsr_window" if inner.uses_window
+                              else "spmv_bsr",), c128)
+        ref = reference(references, key)
+        Uh, Vn = host_array(U), host_array(Vh).conj().T
+        sv_err = float(np.abs(s - ref).max() / ref.max())
+        r_av = float(np.linalg.norm(A_sv @ Vn - Uh * s, axis=0).max() / s.max())
+        r_ahu = float(np.linalg.norm(A_sv.conj().T @ Uh - Vn * s, axis=0).max()
+                      / s.max())
+        orth = max(np.abs(Uh.conj().T @ Uh - np.eye(5)).max(),
+                   np.abs(Vn.conj().T @ Vn - np.eye(5)).max())
+        print(f"  singular values {s}; ARPACK {ref}")
+        print(f"  relative error {sv_err:.3e} (limit 1e-9); |Av - su| / s_max "
+              f"{r_av:.3e}, |A^H u - sv| / s_max {r_ahu:.3e} (limits 1e-7); "
+              f"orthonormality {orth:.3e} (limit 1e-10)")
+        if not (U.dtype == c128 and sv_err <= 1e-9 and r_av <= 1e-7
+                and r_ahu <= 1e-7 and orth <= 1e-10):
+            fail(f"BSR svds ({label}) disagrees with ARPACK's svds or its "
+                 "triplets are off")
+        rows.append((label, hist, wall))
+        extra[label] = {"sv_err": sv_err, "r_av": r_av, "r_ahu": r_ahu}
+        del U, Vh, op_sv, adj, inner
     del op_db
-    A_sv = mats["phased_window_reflect"]
-    op_sv = bsr(A_sv, "svds")
-    before = dcounts()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    U, s, Vh, hist = svds(op_sv, 5, which="LM", tol=1e-8, ncv=40, dtype=c128,
-                          return_history=True)
-    sync()
-    wall = time.perf_counter() - t0
-    report_solve("BSR svds", hist, wall, counts)
-    adj = adjoint_operator(op_sv)
-    print(f"  A^H: BsrOperator blocks {tuple(adj.blocks.shape)}, window "
-          f"{adj.window.width} -> {'window' if adj.uses_window else 'gather'} kernel")
-    check_launched_dtype("BSR svds", before, dcounts(),
-                         ("spmv_bsr_window" if adj.uses_window else "spmv_bsr",), c128)
-    ref = reference(references, "svds_bsr")
-    Uh, Vn = host_array(U), host_array(Vh).conj().T
-    sv_err = float(np.abs(s - ref).max() / ref.max())
-    r_av = float(np.linalg.norm(A_sv @ Vn - Uh * s, axis=0).max() / s.max())
-    r_ahu = float(np.linalg.norm(A_sv.conj().T @ Uh - Vn * s, axis=0).max() / s.max())
-    orth = max(np.abs(Uh.conj().T @ Uh - np.eye(5)).max(),
-               np.abs(Vn.conj().T @ Vn - np.eye(5)).max())
-    print(f"  singular values {s}; ARPACK {ref}")
-    print(f"  relative error {sv_err:.3e} (limit 1e-9); |Av - su| / s_max "
-          f"{r_av:.3e}, |A^H u - sv| / s_max {r_ahu:.3e} (limits 1e-7); "
-          f"orthonormality {orth:.3e} (limit 1e-10)")
-    if not (U.dtype == c128 and sv_err <= 1e-9 and r_av <= 1e-7 and r_ahu <= 1e-7
-            and orth <= 1e-10):
-        fail("BSR svds disagrees with ARPACK's svds or its triplets are off")
-    rows.append(("svds_bsr", hist, wall))
-    del U, Vh, op_sv, adj
 
     A = mats["laplace"]
     print("phase 39: checkpoint: solve A cut at max_restarts=50 with a snapshot "
@@ -3111,6 +3211,528 @@ def phase_complex_bsr(mats, references, counts, dcounts, refs, device="cuda"):
     os.remove(path)
     del Q, op
     return rows, extra
+
+
+# The sharded path (phases 40-44): the port's parallel/ package over a
+# row mesh of torch.distributed ranks on the one card.
+
+#: The kernels the sharded path (phases 41-44) must launch (in every rank
+#: of it, summed); the BSR halo runs whichever BSR kernel its shards take.
+PARALLEL_KERNELS = ("spmv_dia_ext", "spmv_dia_ext_cols", "spmv_ell",
+                    "masked_project", "project_update_norm")
+MESH_RANKS = 2              # phases 42-44: ranks sharing the card over gloo
+PARALLEL_TIMEOUT_S = 600
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def separated_banded(n, seed=3):
+    """A symmetric 9-band matrix with five well-separated largest
+    eigenvalues: the symmetric part of ``random_scattered(n, 24, seed=3,
+    bandwidth=4)`` (DIA: 9 diagonals).  Phase 42's block solve over the DIA
+    halo (``spmv_dia_ext_cols``) converges on it in a few restarts."""
+    from arnoldi_tpu_torch import matrices
+
+    R = matrices.random_scattered(n, 24, seed=seed, bandwidth=4)
+    return ((R + R.T) / 2).tocsr()
+
+
+def shard_window_csr(A, row0, row1, halo):
+    """Rows [row0, row1) of ``A`` over the window columns [row0 - halo,
+    row1 + halo) (the ring-halo shard's ``x``), as SciPy CSR."""
+    import scipy.sparse as sp
+
+    B = sp.coo_matrix(A.tocsr()[row0:row1])
+    return sp.csr_matrix((B.data, (B.row, B.col - row0 + halo)),
+                         shape=(row1 - row0, row1 - row0 + 2 * halo))
+
+
+def random_banded(offsets, n, gen, device):
+    """A float64 :class:`BandedOperator` of ``n`` rows with random bands at
+    ``offsets``, zero where ``i + offset`` leaves the matrix (the DIA
+    layout's convention)."""
+    import torch
+
+    from arnoldi_tpu_torch.linop import BandedOperator
+
+    bands = torch.randn(len(offsets), n, generator=gen, device=device,
+                        dtype=torch.float64)
+    i = torch.arange(n, device=device)
+    for d, off in enumerate(offsets):
+        bands[d][(i + off < 0) | (i + off >= n)] = 0.0
+    return BandedOperator(bands, tuple(offsets), int((bands != 0).sum()))
+
+
+def phase_shard_kernels(mats, rec, gen, device="cuda"):
+    """Phase 40: ``spmv_dia_ext`` and ``spmv_dia_ext_cols`` against their
+    plain versions at the shapes the 2-rank DIA shards of phases 42-44 give
+    them, on both ranks, b = 1 and 8: the whole block against the halo
+    window, its first and last h rows alone (the rows the overlapped pass
+    recomputes) and the block against the whole vector (the all-gather).
+    Shards of laplace_2d(724) (5 bands, 262,088 rows, h = 724: solves A, I
+    and phase 44) in float64 and complex128, timed (float64) beside their
+    bound and cuSPARSE's CSR product of the shard's window; and of solve
+    E9's 9-band 2^20-row layout (random bands at offsets -4..4, 524,288
+    rows, h = 4), float64.  Then the rectangular ELL and BSR-8 shards of
+    the scattered matrix (halo 2^14 rows, 2^11 block rows) against theirs.
+    Not counted."""
+    import numpy as np
+    import torch
+
+    from arnoldi_tpu_torch import as_operator
+    from arnoldi_tpu_torch.linop import BandedOperator, cast_operator
+    from arnoldi_tpu_torch.ops.kernels import spmv_banded, spmv_bsr, spmv_ell
+    from arnoldi_tpu_torch.parallel import Mesh, halo_matvec_closure
+
+    dev = torch.device(device)
+    A = mats["laplace"]
+    dia = BandedOperator.from_scipy(A, device=dev)
+    cases = [("laplace_2d(724)", dia, dtype) for dtype in (torch.float64,
+                                                           torch.complex128)]
+    cases.append(("E9 layout", random_banded(range(-4, 5), 2**20, gen, dev),
+                  torch.float64))
+    forms = ((1, "spmv_dia_ext", spmv_banded.banded_matvec_ext),
+             (8, "spmv_dia_ext_cols", spmv_banded.banded_matmat_ext))
+    for matrix, square, dtype in cases:
+        op = cast_operator(square, dtype)
+        n = op.shape[0]
+        for rank in range(MESH_RANKS):
+            local = halo_matvec_closure(op, Mesh(None, rank, MESH_RANKS, dev)).local
+            h, n_local = local.x_base, local.bands.shape[1]
+            row0 = rank * n_local
+            for nb, name, wrap in forms:
+                shape = (n_local + 2 * h,) if nb == 1 else (nb, n_local + 2 * h)
+                x = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+                x_all = torch.randn(shape[:-1] + (n,), generator=gen, device=dev,
+                                    dtype=dtype)
+                for label, xx, base, r0, rows in (
+                        ("halo window", x, h, 0, None),
+                        (f"first {h} rows", x, h, 0, h),
+                        (f"last {h} rows", x, h, n_local - h, h),
+                        ("all-gather", x_all, row0, 0, None)):
+                    kw = dict(x_base=base, row0=r0, rows=rows)
+                    rec[name].check(
+                        f"{name} {matrix} rank {rank} {label} b={nb}", dtype,
+                        wrap(local.bands, xx, local.offsets, **kw),
+                        spmv_banded.banded_matvec_ext_plain(
+                            local.bands, xx, local.offsets, **kw))
+                if matrix == "laplace_2d(724)" and dtype == torch.float64 and rank == 1:
+                    time_shard_form(rec[name], wrap, local, x, nb,
+                                    shard_window_csr(A, row0, row0 + n_local, h),
+                                    dev)
+        del op, local, x, x_all
+    del dia, cases
+
+    A = mats["scattered"]
+    for fmt, label in (("ell", "ELL"), (("bsr", (8, 8)), "BSR-8")):
+        op = as_operator(A, format=fmt, dtype=torch.float64, device=dev)
+        for rank in range(MESH_RANKS):
+            halo = halo_matvec_closure(op, Mesh(None, rank, MESH_RANKS, dev))
+            local = halo.local
+            width = local.shape[1]
+            for nb in (1, 8):
+                x = torch.randn((width,) if nb == 1 else (nb, width), generator=gen,
+                                device=dev, dtype=torch.float64)
+                if label == "ELL":
+                    name = "spmv_ell" if nb == 1 else "spmv_ell_cols"
+                    got = (local.matvec(x) if nb == 1 else local.matmat_rows(x))
+                    want = spmv_ell.ell_matvec_plain(local.data, local.cols, x)
+                    shape = f"({local.data.shape[0]}, L={local.data.shape[1]}) x {width}"
+                else:
+                    window = local.uses_window
+                    name = ("spmv_bsr_window" if window else "spmv_bsr") + (
+                        "" if nb == 1 else "_cols")
+                    got = (local.matvec(x) if nb == 1 else local.matmat_rows(x))
+                    want = (spmv_bsr.bsr_window_matvec_plain(local.blocks, local.window,
+                                                             x, local.n_rows)
+                            if window else spmv_bsr.bsr_matvec_plain(
+                                local.blocks, local.block_cols, x, local.n_rows))
+                    shape = (f"blocks {tuple(local.blocks.shape)} x {width}, "
+                             f"{'window' if window else 'gather'} kernel")
+                rec[name].check(f"{label} shard rank {rank} halo {halo.halo} {shape} "
+                                f"b={nb}", torch.float64, got, want)
+        del op, halo, local
+    sync()
+    for name in ("spmv_dia_ext", "spmv_dia_ext_cols"):
+        print_time(name, rec[name])
+
+
+def time_shard_form(r, wrap, local, x, nb, window, dev):
+    """Time a DIA shard form on its block ``local`` against the halo
+    window ``x`` (events, cold device time), beside its bound and
+    cuSPARSE's CSR product of the shard's ``window`` (SciPy)."""
+    import torch
+
+    from arnoldi_tpu_torch.ops.kernels import spmv_banded
+
+    h = local.x_base
+
+    def kernel(bands=local.bands, x=x):
+        return wrap(bands, x, local.offsets, x_base=h)
+
+    def plain():
+        return spmv_banded.banded_matvec_ext_plain(local.bands, x, local.offsets,
+                                                   x_base=h)
+
+    r.time(kernel, plain, cold(kernel, local.bands, x))
+    n_local = local.bands.shape[1]
+    r.set_bound((local.bands.numel() + nb * (2 * n_local + 2 * h)) * 8,
+                2 * local.bands.numel() * nb)
+    W = csr_tensor(window, torch.float64, dev)
+    XT = x if nb == 1 else x.T.contiguous()
+
+    def library(W=W, XT=XT):
+        return W @ XT
+
+    r.time_library(f"A_window_csr @ {'x' if nb == 1 else 'X'} "
+                   f"(cuSPARSE Sp{'MV' if nb == 1 else 'MM'})", library,
+                   plain() if nb == 1 else plain().T, cold(library, W, XT))
+
+
+def check_bit_equal(label, got, want_T, got_mv, want_mv, limit=1e-12):
+    import numpy as np
+
+    got = host_array(got) if hasattr(got, "cpu") else np.asarray(got)
+    diff = float(np.abs(got - want_T).max())
+    print(f"  {label}: matvecs {got_mv} (expected {want_mv}); max |T - T_ref| "
+          f"{diff:.3e} (limit {limit:g}; bit-equal: {diff == 0.0})")
+    if not (got_mv == want_mv and diff <= limit):
+        fail(f"{label} differs from its reference solve")
+    return diff
+
+
+def phase_one_rank_nccl(mats, counts, refs):
+    """Phase 41: solve A's configuration through ``sharded_partial_schur``
+    over a one-rank NCCL process group in this process, with the ring-halo
+    DIA operator: the all-reduces are of one term, so it must repeat solve
+    A (2900 matvecs, T within 1e-12)."""
+    import torch
+    import torch.distributed as dist
+
+    from arnoldi_tpu_torch import as_operator
+    from arnoldi_tpu_torch.parallel import halo_matvec_closure, make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        print(f"  mesh: {mesh.size} rank, backend {mesh.backend}, device {mesh.device}")
+        A = mats["laplace"]
+        op = halo_matvec_closure(as_operator(A, dtype=torch.float64, device="cuda"),
+                                 mesh)
+        print(f"  HaloOperator: halo {op.halo} rows, kernel {op.kernel}, "
+              f"{op.exchange_bytes()} bytes exchanged a matvec")
+        Q, T, hist, wall = solve("solve A, one-rank NCCL mesh", op, 5, "LM", 80, counts)
+        check_laplace("solve A, one-rank NCCL mesh", A, Q, T, 724)
+        diff = check_bit_equal("one-rank mesh against solve A", T, refs["A_T"],
+                               hist.total_matvecs, refs["A_matvecs"])
+        del Q, op
+    finally:
+        dist.destroy_process_group()
+    return hist, wall, {"max_abs_dT": diff, "backend": "nccl"}
+
+
+def mesh_rank_main(rank, size, port, refs, queue):
+    """One rank of phases 42-44 (a spawned process, gloo over localhost,
+    computing on the card the parent uses).  Puts ``(rank, results)`` on
+    ``queue``; rank 0 checks each solve against its reference and prints."""
+    import numpy as np
+    import torch
+
+    from arnoldi_tpu_torch import as_operator, partial_eigh, partial_schur
+    from arnoldi_tpu_torch import matrices
+    from arnoldi_tpu_torch.ops import kernels
+    from arnoldi_tpu_torch.ops.kernels import _build
+    from arnoldi_tpu_torch.parallel import (gather_rows, halo_matvec_closure,
+                                            make_mesh, shard_operator)
+    from arnoldi_tpu_torch.parallel.multihost import initialize
+    from arnoldi_tpu_torch.utils.checkpoint import (load_checkpoint_sharded,
+                                                    save_checkpoint_sharded)
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.set_device(0)
+    initialize(f"127.0.0.1:{port}", size, rank, backend="gloo")
+    mesh = make_mesh(device="cuda")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    _build.library()                        # the parent's build
+    kernels.reset_launch_counts()
+    out = {"launches": None, "solves": {}}
+
+    def counts():
+        sync()
+        return kernels.launch_counts()
+
+    def record(key, hist, wall, **more):
+        out["solves"][key] = dict(matvecs=hist.total_matvecs,
+                                  restarts=len(hist.residual_trace), wall_s=wall,
+                                  phases=hist.phases, **more)
+
+    def ks(label, op, nev, which, m, **kw):
+        args = dict(max_dim=m, stopping_criterion=1e-8, sort_function=which,
+                    dtype=torch.float64, ortho="cgs2", max_restarts=1000)
+        args.update(kw)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        Q, T, hist = partial_schur(op, nev, **args)
+        sync()
+        wall = time.perf_counter() - t0
+        say(f"  {label} ({size} ranks): wall {wall:.4f} s, matvecs "
+            f"{hist.total_matvecs}, restarts {len(hist.residual_trace)}, "
+            f"{1e3 * wall / hist.total_matvecs:.4f} ms/matvec")
+        return gather_rows(Q, mesh), T, hist, wall
+
+    def describe(label, op):
+        say(f"  {label}: {type(op).__name__}, backend {mesh.backend}, kernel "
+            f"{op.kernel}, {op.exchange_bytes()} bytes a rank receives a matvec")
+
+    t_all = time.perf_counter()
+    A = matrices.laplace_2d(724)
+    dia = as_operator(A, dtype=torch.float64, device="cuda")
+    say("phase 42: two ranks on the card over gloo (CUDA tensors into its "
+        "all-reduce and all-gather, the ring exchange staged through pinned host "
+        "buffers)")
+    H = halo_matvec_closure(dia, mesh)
+    describe("solve A, DIA halo", H)
+    Q, T, hist, wall = ks("solve A, DIA halo", H, 5, "LM", 80)
+    if rank == 0:
+        check_laplace("solve A, 2-rank DIA halo", A, Q, T, 724)
+        print(f"  matvecs {hist.total_matvecs} against solve A's {refs['A_matvecs']} "
+              "on one card")
+    record("A2", hist, wall, T=host_array(T))
+    del Q
+
+    S = scattered_matrix(2**20)
+    ell = as_operator(S, dtype=torch.float64, device="cuda")
+    for label, op in (("solve B, ELL halo", halo_matvec_closure(ell, mesh)),
+                      ("solve B, all-gather", shard_operator(ell, mesh))):
+        describe(label, op)
+        Q, T, hist, wall = ks(label, op, 5, "LR", 40)
+        if rank == 0:
+            check_arpack(label, S, Q, T, refs["B"])
+        record("B2_halo" if "halo" in label else "B2_gather", hist, wall)
+        del Q, op
+    bsr = as_operator(S, dtype=torch.float64, format=("bsr", (8, 8)), device="cuda")
+    H = halo_matvec_closure(bsr, mesh)
+    del bsr
+    describe("solve C, BSR-8 halo", H)
+    Q, T, hist, wall = ks("solve C, BSR-8 halo", H, 5, "LR", 40)
+    if rank == 0:
+        check_arpack("solve C, 2-rank BSR-8 halo", S, Q, T, refs["B"])
+    record("C2", hist, wall, kernel=H.kernel)
+    del Q, H
+
+    H = halo_matvec_closure(dia, mesh)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    # cgs2: three all-reduces and one ring exchange a step (cgs_dgks takes
+    # four and one where its second pass runs, most steps here)
+    vals, V, hist = partial_eigh(H, 5, which="LA", max_dim=80, ortho="cgs2",
+                                 stopping_criterion=1e-8, dtype=torch.float64)
+    sync()
+    wall = time.perf_counter() - t0
+    say(f"  solve I, DIA halo ({size} ranks, partial_eigh, host loop): wall "
+        f"{wall:.4f} s, matvecs {hist.total_matvecs}")
+    V = gather_rows(V, mesh)
+    if rank == 0:
+        check_laplace_eigh("solve I, 2-rank DIA halo", A, vals, V, 724)
+    record("I2", hist, wall)
+    del V
+
+    B9 = separated_banded(2**20)
+    H9 = halo_matvec_closure(as_operator(B9, dtype=torch.float64, device="cuda"),
+                             mesh)
+    Q, T, hist, wall = ks(f"solve E9, the separated 9-band matrix, DIA halo, "
+                          f"block_size={B_COLS}", H9, 5, "LR", 40,
+                          block_size=B_COLS)
+    if rank == 0:
+        check_arpack("solve E9, 2-rank DIA halo, block", B9, Q, T, refs["E9"])
+    record("E9", hist, wall)
+    del Q, H9
+
+    say("phase 43: solve M refined over the 2-rank ELL halo: float32 to 2e-4, "
+        "then the float64 continuation on the halo operator's own values")
+    H = halo_matvec_closure(ell, mesh)
+    Q, T, hist, wall = ks("solve M, ELL halo", H, 5, "LR", 40, dtype=torch.float32)
+    if rank == 0:
+        if Q.dtype != torch.float64 or "refine.continue" not in hist.phases:
+            fail("solve M over the mesh did not refine in float64")
+        check_arpack("solve M, 2-rank ELL halo", S, Q, T, refs["B"])
+    record("M2", hist, wall)
+    del Q, H, ell
+
+    say("phase 44: sharded checkpoint: solve A on 2 ranks cut at restart 50 "
+        "(a snapshot every 25), resumed on 2 ranks")
+    path = os.path.join(CHECKPOINT_DIR, "sharded_a.npz")
+    if rank == 0:
+        os.makedirs(CHECKPOINT_DIR, exist_ok=True)
+        for fn in [path] + [f"{path}.p{k}" for k in range(8)]:
+            if os.path.exists(fn):
+                os.remove(fn)
+    mesh.barrier()
+    H = halo_matvec_closure(dia, mesh)
+    try:
+        ks("solve A cut", H, 5, "LM", 80, max_restarts=50, checkpoint_path=path,
+           checkpoint_every=25)
+    except ValueError as e:
+        if "Has not converged" not in str(e):
+            raise
+    else:
+        fail("solve A at max_restarts=50 should not have converged")
+    files = {os.path.basename(fn): os.path.getsize(fn)
+             for fn in [path, f"{path}.p0", f"{path}.p1"]}
+    say(f"  snapshot files (bytes): {files}")
+    # The solve's own writes raised with it; write the snapshot again from
+    # host memory to time a save (this rank's shard, rank 0's metadata).
+    ck = load_checkpoint_sharded(path, mesh)
+    copy = path + ".copy.npz"
+    t0 = time.perf_counter()
+    save_checkpoint_sharded(copy, ck, mesh)
+    rewrite = time.perf_counter() - t0
+    os.remove(f"{copy}.p{rank}")
+    if rank == 0:
+        os.remove(copy)
+    say(f"  writing it again from host memory (every rank its shard, a barrier): "
+        f"{rewrite:.4f} s")
+    del ck
+    Q, T, hist, wall = ks("solve A resumed", H, 5, "LM", 80, resume=True,
+                          checkpoint_path=path, checkpoint_every=10**6)
+    record("A2_resumed", hist, wall, T=host_array(T), files=files,
+           snapshot_rewrite_s=rewrite)
+    del Q, H, dia
+    out["launches"] = kernels.launch_counts()
+    out["wall_s"] = time.perf_counter() - t_all
+    mesh.barrier()
+    queue.put((rank, out))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def run_mesh_ranks(refs):
+    """Spawn the ranks of phases 42-44 and collect their results; fail if
+    a rank fails or outlives ``PARALLEL_TIMEOUT_S``."""
+    import multiprocessing
+
+    import torch
+
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=mesh_rank_main,
+                         args=(rank, MESH_RANKS, port, refs, queue))
+             for rank in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    results, t0 = {}, time.perf_counter()
+    try:
+        while len(results) < MESH_RANKS:
+            try:
+                rank, out = queue.get(timeout=5)
+                results[rank] = out
+            except Exception:       # queue.Empty: look at the ranks
+                dead = [p for p in procs if p.exitcode not in (None, 0)]
+                if dead:
+                    fail(f"a rank of phases 42-44 exited {dead[0].exitcode}")
+                if time.perf_counter() - t0 > PARALLEL_TIMEOUT_S:
+                    fail(f"phases 42-44 outlived {PARALLEL_TIMEOUT_S} s")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [results[r] for r in range(MESH_RANKS)]
+
+
+def phase_parallel(mats, counts, refs, references=None):
+    """Phases 41-44 (the sharded path; the caller zeroes the counts before
+    and reads them after): the one-rank NCCL mesh here, phases 42-44 in
+    two spawned ranks, then this process resumes phase 44's snapshot on
+    one rank.  ``references``: the reference worker's results, "E9" among
+    them (computed here without it).  Returns ``(rows, extra, worker
+    launches summed)``."""
+    import numpy as np
+    import torch
+
+    from arnoldi_tpu_torch import as_operator, partial_schur
+    from arnoldi_tpu_torch.parallel import make_mesh
+
+    rows, extra = [], {}
+    refs = dict(refs, E9=(reference(references, "E9") if references is not None
+                          else complex_reference("E9", 2**20)[0]))
+    print("phase 41: one-rank NCCL mesh in this process, solve A's configuration "
+          "through sharded_partial_schur with the DIA halo")
+    hist, wall, more = phase_one_rank_nccl(mats, counts, refs)
+    rows.append(("A_nccl1", hist, wall))
+    extra["A_nccl1"] = more
+
+    t0 = time.perf_counter()
+    ranks = run_mesh_ranks(refs)
+    print(f"  phases 42-44 in {MESH_RANKS} spawned ranks: {time.perf_counter() - t0:.2f} s "
+          f"(ranks' own walls {[round(r['wall_s'], 2) for r in ranks]})")
+    r0 = ranks[0]["solves"]
+    for key in r0:
+        per_rank = [r["solves"][key]["matvecs"] for r in ranks]
+        if len(set(per_rank)) != 1:
+            fail(f"{key}: the ranks counted different matvecs {per_rank}")
+        print(f"  {key}: matvecs {per_rank[0]} on every rank, restarts "
+              f"{r0[key]['restarts']}, wall {r0[key]['wall_s']:.4f} s")
+    a2 = r0["A2"]
+    check_bit_equal("the resumed 2-rank solve A against the unbroken one",
+                    r0["A2_resumed"]["T"], a2["T"], r0["A2_resumed"]["matvecs"],
+                    a2["matvecs"])
+    print(f"  snapshot files {r0['A2_resumed']['files']}, written again from host "
+          f"memory in {r0['A2_resumed']['snapshot_rewrite_s']:.4f} s")
+    for key in ("A2", "B2_halo", "B2_gather", "C2", "I2", "E9", "M2", "A2_resumed"):
+        s = r0[key]
+        extra[key] = {"ranks": MESH_RANKS, "phases_rank0": s["phases"]}
+        rows.append((key, _Hist(s["matvecs"], s["restarts"]), s["wall_s"]))
+    extra["A2_resumed"].update(files=r0["A2_resumed"]["files"],
+                               snapshot_rewrite_s=r0["A2_resumed"]["snapshot_rewrite_s"])
+    extra["C2"]["kernel"] = r0["C2"]["kernel"]
+
+    print("phase 44: the 2-rank snapshot resumed on one rank (mesh-elastic)")
+    A = mats["laplace"]
+    op = as_operator(A, dtype=torch.float64, device="cuda")
+    path = os.path.join(CHECKPOINT_DIR, "sharded_a.npz")
+    t0 = time.perf_counter()
+    Q, T, hist = partial_schur(op, 5, mesh=make_mesh(), max_dim=80,
+                               stopping_criterion=1e-8, sort_function="LM",
+                               dtype=torch.float64, ortho="cgs2", max_restarts=1000,
+                               resume=True, checkpoint_path=path,
+                               checkpoint_every=10**6)
+    sync()
+    wall = time.perf_counter() - t0
+    report_solve("solve A resumed on one rank", hist, wall, counts)
+    check_laplace("solve A resumed on one rank", A, Q, T, 724)
+    rows.append(("A1_elastic", hist, wall))
+    for fn in [path] + [f"{path}.p{k}" for k in range(MESH_RANKS)]:
+        os.remove(fn)
+    del Q, op
+    summed = {}
+    for r in ranks:
+        for name, v in r["launches"].items():
+            summed[name] = summed.get(name, 0) + v
+    print(f"  launches in the spawned ranks (summed): {summed}")
+    return rows, extra, summed
+
+
+class _Hist:
+    """A spawned rank's solve counts, read as a History is read."""
+
+    def __init__(self, matvecs, restarts):
+        self.total_matvecs = matvecs
+        self.residual_trace = [0.0] * restarts
 
 
 def main():
@@ -3187,7 +3809,7 @@ def main():
 
 
 def run_phases(mats, references, smi):
-    """Phases 1-39 and the report (``main`` builds the matrices and starts
+    """Phases 1-44 and the report (``main`` builds the matrices and starts
     the complex solves' ARPACK references)."""
     import torch
 
@@ -3331,7 +3953,9 @@ def run_phases(mats, references, smi):
     hermitian = phase_hermitian(mats, counts, refs)
 
     final, final_dtypes = counts(), kernels.dtype_launch_counts()
-    missing = [k for k, v in final.items() if v == 0]
+    # The DIA shard form runs on the sharded path (phases 41-44) alone.
+    missing = [k for k, v in final.items() if v == 0
+               and k not in ("spmv_dia_ext", "spmv_dia_ext_cols")]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     print(f"launches on the main path (phases 2-13): {final}")
@@ -3411,6 +4035,26 @@ def run_phases(mats, references, smi):
     print(f"launches on the complex BSR and checkpoint path (phases 35-39): {b_dtypes}")
     print(f"phases 35-39 wall {b_wall:.2f} s")
 
+    print("phase 40: the DIA shard form and the ELL/BSR shards against their plain "
+          "versions (not counted)")
+    t0 = time.perf_counter()
+    phase_shard_kernels(mats, rec, torch.Generator(device="cuda").manual_seed(6))
+    print(f"  phase 40 wall {time.perf_counter() - t0:.2f} s")
+
+    # The sharded path, counted on its own: this process and the ranks.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    p_rows, p_extra, rank_counts = phase_parallel(mats, counts, refs, references)
+    p_wall = time.perf_counter() - t0
+    p_counts = {name: v + rank_counts.get(name, 0) for name, v in counts().items()}
+    bsr_halo = p_extra["C2"]["kernel"]
+    idle = [k for k in PARALLEL_KERNELS + (bsr_halo,) if p_counts[k] == 0]
+    if idle:
+        fail(f"kernels of phases 41-44 never launched there: {idle}")
+    print(f"launches on the sharded path (phases 41-44, this process and the "
+          f"ranks): {p_counts}")
+    print(f"phases 41-44 wall {p_wall:.2f} s")
+
     summary = {label: {"matvecs": h.total_matvecs, "restarts": len(h.residual_trace),
                        "wall_s": w, "ms_per_matvec": 1e3 * w / h.total_matvecs}
                for label, h, w in (("A", hist_a, wall_a), ("B", hist_b, wall_b),
@@ -3418,16 +4062,20 @@ def run_phases(mats, references, smi):
                                    ("E", hist_e, wall_e), ("F", hist_f, wall_f),
                                    ("G", hist_g, wall_g), ("H", hist_h, wall_h),
                                    *hermitian, *refined, *complex_rows,
-                                   *si_rows, *f_rows, *b_rows)}
+                                   *si_rows, *f_rows, *b_rows, *p_rows)}
     for label, fields in {**extra, **complex_extra, **si_extra,
-                          **f_extra, **b_extra}.items():
-        summary[label].update(fields)
+                          **f_extra, **b_extra, **p_extra}.items():
+        summary.setdefault(label, {}).update(fields)
     print(f"solves: {json.dumps(summary)}")
     print(f"card: {smi}")
 
+    # "launches": the main path's (phases 2-13); for the DIA shard form,
+    # which runs on the sharded path alone, phases 41-44's.
     report = {"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-         "launches": final[name], "max_abs_err": rec[name].max_abs_err,
+         "launches": (p_counts[name] if name in ("spmv_dia_ext", "spmv_dia_ext_cols")
+                      else final[name]),
+         "max_abs_err": rec[name].max_abs_err,
          "ms": rec[name].ms, "plain_ms": rec[name].plain_ms,
          "bound_ms": rec[name].bound_ms, "bound_by": rec[name].bound_by,
          "library_ms": rec[name].library_ms, "dev_ms": rec[name].dev_ms,
@@ -3439,7 +4087,8 @@ def run_phases(mats, references, smi):
          "launches_phases_32_34": f_counts[name],
          "dtypes_phases_32_34": f_dtypes[name],
          "launches_phases_35_39": b_counts[name],
-         "dtypes_phases_35_39": b_dtypes[name]}
+         "dtypes_phases_35_39": b_dtypes[name],
+         "launches_phases_41_44": p_counts[name]}
         for name, (_, source, replaces) in kernels.KERNELS.items()]}
     # The complex forms, each with its own record: "launches" counts the
     # complex path's launches in its dtype.

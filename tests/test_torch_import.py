@@ -2,7 +2,8 @@
 over BSR-8, on the host tier and refined from float32; ``partial_eigh`` on
 both loops and on the host tier; ``svds`` over a Gram with its adjoint
 leg; ``eigsh`` with a cg shift-invert inner solve and ``svds(sigma=)``;
-``eigsh_filtered``, ``eigsh_window`` and both explicit-restart drivers)
+``eigsh_filtered``, ``eigsh_window``, both explicit-restart drivers, and
+``parallel``'s sharded solve and ring-halo operator on a one-rank mesh)
 where JAX cannot be imported, a CPU solve never builds or loads
 the CUDA kernel library, and nothing is loaded from the JAX package's tree:
 no module and no shared library (the port's own host libraries build under
@@ -75,6 +76,20 @@ V = vecs.numpy()
 res = max(res, np.linalg.norm(A @ V - V * vals, axis=0).max())
 ritz, converged, _ = arnoldi_tpu_torch.naive_explicit_restarts(
     A, stopping_criterion=1e-9, max_restarts=100, device="cpu")
+from arnoldi_tpu_torch import parallel
+from arnoldi_tpu_torch.parallel import multihost
+multihost.initialize()                       # one process: a no-op
+mesh = parallel.make_mesh(device="cpu")
+Q, T, hist = parallel.sharded_partial_schur(
+    arnoldi_tpu_torch.as_operator(A, device="cpu"), 3, mesh=mesh,
+    sort_function="LR")
+res = max(res, np.linalg.norm(A @ Q.numpy() - Q.numpy() @ T.numpy(), axis=0).max())
+L = matrices.laplace(120).tocsr()
+vals, vecs, _ = arnoldi_tpu_torch.partial_eigh(
+    parallel.halo_matvec_closure(arnoldi_tpu_torch.as_operator(L, device="cpu"),
+                                 mesh), 3, stopping_criterion=1e-9)
+V = vecs.numpy()
+res = max(res, np.linalg.norm(L @ V - V * vals, axis=0).max())
 assert converged and arnoldi_tpu_torch.__version__
 print(json.dumps({
     "residual": float(res),

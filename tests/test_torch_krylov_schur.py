@@ -185,19 +185,20 @@ def test_host_input_needs_a_device():
         partial_schur(mark(10), 3)
 
 
-@pytest.mark.parametrize("kwargs,error", [
-    pytest.param(dict(mesh=object()), NotImplementedError, id="mesh"),
-    # resuming from a sharded (mesh) snapshot, which holds no V: the
-    # scalar and the block driver
-    pytest.param(dict(checkpoint_path="sharded", resume=True),
-                 NotImplementedError, id="checkpoint_path"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    # a mesh that is not an arnoldi_tpu_torch.parallel.Mesh
+    pytest.param(dict(mesh=object()), TypeError, "parallel.Mesh", id="mesh"),
+    # resuming from a sharded (mesh) snapshot, which holds no V, without a
+    # mesh: the scalar and the block driver, as JAX asserts
+    pytest.param(dict(checkpoint_path="sharded", resume=True), AssertionError,
+                 "sharded checkpoint: pass a mesh", id="checkpoint_path"),
     pytest.param(dict(checkpoint_path="sharded", resume=True, block_size=2),
-                 NotImplementedError, id="resume"),
+                 AssertionError, "sharded checkpoint: pass a mesh", id="resume"),
     # a refined complex solve: JAX asserts the real float32 path
     pytest.param(dict(refine="dw", dtype=np.complex64), ValueError,
-                 id="refine"),
+                 "refine='dw'", id="refine"),
 ])
-def test_outside_the_slice_raises(kwargs, error, tmp_path):
+def test_outside_the_slice_raises(kwargs, error, match, tmp_path):
     from arnoldi_tpu_torch.utils import checkpoint
 
     op = as_operator(mark(10), device="cpu")
@@ -209,8 +210,7 @@ def test_outside_the_slice_raises(kwargs, error, tmp_path):
                 total_matvecs=40, matvecs=np.zeros(3, np.int32),
                 restarts=np.zeros(3, np.int32), residual_trace=[1.0])))
         kwargs = dict(kwargs, checkpoint_path=path)
-    with pytest.raises(error, match="ROADMAP" if error is NotImplementedError
-                       else "refine='dw'"):
+    with pytest.raises(error, match=match):
         partial_schur(op, 3, **kwargs)
 
 

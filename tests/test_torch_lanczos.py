@@ -255,7 +255,7 @@ def test_geometry_and_refusals():
         partial_eigh(op, 3, which="LR")
     with pytest.raises(ValueError, match="max_dim"):
         partial_eigh(op, 3, max_dim=3)      # p = 2 < nev
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         partial_eigh(op, 3, mesh=object())
     with pytest.raises(ValueError, match="refine"):
         partial_eigh(op, 3, refine="bogus")

@@ -104,13 +104,19 @@ def test_materialized_adjoint_is_built_once(case):
 
 
 def test_adjoint_refuses_hub_columns_and_closures():
-    # one dense column of A is one dense row of A^H: no padded layout
+    # one dense column of A is one dense row of A^H, which has no padded
+    # layout: the transpose splits that row into virtual rows and folds them
+    # back, and agrees with JAX's scatter-add rmatvec
     n = 5000
     A = sp.csr_matrix((np.ones(n), (np.arange(n), np.zeros(n, int))),
                       shape=(n, n)) + sp.eye(n, format="csr")
     op = as_operator(A, format="ell", device="cpu")
-    with pytest.raises(ValueError, match="layout"):
-        rmatvec(op, torch.ones(n, dtype=torch.float64), _transposed=True)
+    y = np.random.default_rng(3).standard_normal(n)
+    got = rmatvec(op, torch.from_numpy(y), _transposed=True).numpy()
+    assert type(adjoint_operator(op)).__name__ == "SplitRowsOperator"
+    want = np.asarray(jax_rmatvec(jax_as_operator(A, format="ell"),
+                                  jnp.asarray(y)))
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
     fn = CallableOperator(lambda x: x, (3, 3), torch.float64, device="cpu")
     with pytest.raises(TypeError, match="adjoint"):
         rmatvec(fn, torch.ones(3, dtype=torch.float64))
@@ -205,3 +211,68 @@ def test_scipy_linear_operator_matches_jax(driver):
     *_, h = fn(aslinearoperator(A), 3, device="cpu", **kw)
     assert h.total_matvecs == hj.total_matvecs
     np.testing.assert_array_equal(h.matvecs, hj.matvecs)
+
+
+def _hub_matrix(dtype):
+    """``random_scattered(4096, 24, seed=2, bandwidth=1024, block=8)``:
+    clipped at the edges, its first and last block-columns hold ~32 times
+    the mean block count (a phase on every entry for complex128)."""
+    from arnoldi_tpu.matrices import random_scattered
+
+    A = random_scattered(4096, 24, seed=2, bandwidth=1024, block=8).tocsr()
+    if dtype == np.complex128:
+        phase = np.random.default_rng(6).uniform(0, 2 * np.pi, A.nnz)
+        A = sp.csr_matrix((A.data * np.exp(1j * phase), A.indices, A.indptr),
+                          shape=A.shape)
+    return A
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.complex128])
+@pytest.mark.parametrize("fmt", ["ell", ("bsr", (8, 8))], ids=["ell", "bsr8"])
+def test_hub_column_adjoint_splits_rows_and_matches_jax(fmt, dtype, monkeypatch):
+    from arnoldi_tpu_torch import linop
+    from arnoldi_tpu_torch.linop import SplitRowsOperator
+
+    # The padded layouts' 2^24-element floor admits any transpose of 4096
+    # rows; without it the 8x fill rule applies, as it does at 2^20 rows.
+    monkeypatch.setattr(linop, "_PADDED_FLOOR", 0)
+    A = _hub_matrix(dtype)
+    op = as_operator(A, format=fmt, device="cpu")
+    jop = jax_as_operator(A, format=fmt)
+    adj = adjoint_operator(op)
+    assert isinstance(adj, SplitRowsOperator) and adj.hub.numel() > 0
+    assert adj.shape == (A.shape[1], A.shape[0])
+    rng = np.random.default_rng(8)
+    y = rng.standard_normal(A.shape[0]).astype(dtype)
+    Y = rng.standard_normal((A.shape[0], 3)).astype(dtype)
+    got = rmatvec(op, torch.from_numpy(y), _transposed=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_rmatvec(jop, jnp.asarray(y))),
+                               rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(
+        rmatvec(op, torch.from_numpy(y), _transposed=True).numpy(), got.numpy())
+    want = np.asarray(jax_rmatmat(jop, jnp.asarray(Y)))
+    np.testing.assert_allclose(
+        rmatmat(op, torch.from_numpy(Y), _transposed=True).numpy(), want,
+        rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(
+        adj.matmat_rows(torch.from_numpy(Y.T.copy())).numpy().T, want,
+        rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("fmt", ["ell", ("bsr", (8, 8))], ids=["ell", "bsr8"])
+def test_a_transpose_that_fits_keeps_its_layout(fmt):
+    from arnoldi_tpu.matrices import random_scattered
+
+    A = random_scattered(4096, 24, seed=2, bandwidth=1024, block=8).tocsr()
+    op = as_operator(A, format=fmt, device="cpu")
+    adj = adjoint_operator(op)      # within the 2^24-element floor: no split
+    ref = as_operator(A.T.tocsr(), format=fmt, device="cpu")
+    assert type(adj) is type(op)
+    if fmt == "ell":
+        np.testing.assert_array_equal(adj.data.numpy(), ref.data.numpy())
+        np.testing.assert_array_equal(adj.cols.numpy(), ref.cols.numpy())
+    else:
+        np.testing.assert_array_equal(adj.blocks.numpy(), ref.blocks.numpy())
+        np.testing.assert_array_equal(adj.block_cols.numpy(),
+                                      ref.block_cols.numpy())
+        assert (adj.n_rows, adj.n_cols) == (ref.n_rows, ref.n_cols)
