@@ -13,6 +13,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstring>
+
 namespace arn {
 
 // A complex scalar in torch's layout (real part, then imaginary part),
@@ -114,6 +116,41 @@ template <typename R>
 __device__ __forceinline__ complex<R> ldcg(const complex<R>* p) {
     const auto v = __ldcg(reinterpret_cast<const typename vec2_of<R>::type*>(p));
     return {v.x, v.y};
+}
+
+// Streaming store (stcs: evict-first), for outputs no later load of the
+// kernel reads.
+__device__ __forceinline__ void stcs(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void stcs(double* p, double v) { __stcs(p, v); }
+template <typename R>
+__device__ __forceinline__ void stcs(complex<R>* p, complex<R> v) {
+    typename vec2_of<R>::type q;
+    q.x = v.re;
+    q.y = v.im;
+    __stcs(reinterpret_cast<typename vec2_of<R>::type*>(p), q);
+}
+
+// 16 bytes of T as one access: 4 float, 2 double or c64, 1 c128.  The
+// address must be 16-byte aligned.
+template <typename T> constexpr int kPer16 = 16 / sizeof(T);
+template <typename T> struct vec16_of { using type = float4; };
+template <> struct vec16_of<double> { using type = double2; };
+template <> struct vec16_of<c128> { using type = double2; };
+
+template <typename T>
+__device__ __forceinline__ void ldcs16(T (&v)[kPer16<T>], const T* p) {
+    using V = typename vec16_of<T>::type;
+    const V q = __ldcs(reinterpret_cast<const V*>(p));
+    static_assert(sizeof(q) == sizeof(v), "16 bytes");
+    memcpy(v, &q, sizeof(v));
+}
+
+template <typename T>
+__device__ __forceinline__ void st16(T* p, const T (&v)[kPer16<T>]) {
+    using V = typename vec16_of<T>::type;
+    V q;
+    memcpy(&q, v, sizeof(q));
+    *reinterpret_cast<V*>(p) = q;
 }
 
 // Warp shuffles over all 32 lanes (shfl_down: within aligned groups of

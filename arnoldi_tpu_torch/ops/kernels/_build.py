@@ -33,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: Operand dtypes of the kernels and the suffix of their entry points.
 SUFFIXES = {torch.float32: "f32", torch.float64: "f64",
             torch.complex64: "c64", torch.complex128: "c128"}
+#: Their names, the keys of a wrapper's ``dtype_launches``.
+DTYPE_NAMES = {dtype: str(dtype).removeprefix("torch.") for dtype in SUFFIXES}
 
 _lock = threading.Lock()
 _lib = None
@@ -41,12 +43,10 @@ _p = ctypes.c_void_p
 _i64 = ctypes.c_longlong
 _i32 = ctypes.c_int
 _SIGNATURES = {
-    # bands, x, y, n, k, offsets (host int64[k]), nb, stream
-    "arn_spmv_dia": [_p, _p, _p, _i64, _i32, _p, _i32, _p],
-    # bands, x, y, rows, k, offsets, nb, bands row stride, row0, x_base,
-    # x_len, stream
-    "arn_spmv_dia_ext": [_p, _p, _p, _i64, _i32, _p, _i32, _i64, _i64, _i64,
-                         _i64, _p],
+    # bands, x, y, rows, k, offsets (host int64[k]), nb, bands row stride,
+    # row0, x_base, x_len, stream
+    "arn_spmv_dia": [_p, _p, _p, _i64, _i32, _p, _i32, _i64, _i64, _i64, _i64,
+                     _p],
     # data, cols, x, y, n_rows, n_cols, L, nb, stream
     "arn_spmv_ell": [_p, _p, _p, _p, _i64, _i64, _i32, _i32, _p],
     # blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb, stream
@@ -173,8 +173,55 @@ def count_launch(wrapper, dtype):
     """Count one launch of ``wrapper``'s kernel: ``wrapper.launches`` (all
     dtypes) and ``wrapper.dtype_launches[name]`` (``"complex128"``, ...)."""
     wrapper.launches += 1
-    key = str(dtype).removeprefix("torch.")
+    key = DTYPE_NAMES[dtype]
     wrapper.dtype_launches[key] = wrapper.dtype_launches.get(key, 0) + 1
+
+
+def entry_points(name):
+    """``{dtype: C entry point}`` of ``name`` for every dtype of
+    :data:`SUFFIXES`, resolved once by a wrapper on its first launch
+    (loading the library, building it first if needed)."""
+    lib = library()
+    return {dtype: getattr(lib, f"{name}_{suffix}")
+            for dtype, suffix in SUFFIXES.items()}
+
+
+def launch(fn, device, *args):
+    """The lean launch: call the C entry point ``fn`` with ``args`` and the
+    raw handle of the current stream of CUDA device ``device`` (an index),
+    read without building a ``torch.cuda.Stream``.  A device guard is
+    entered only when ``device`` is not the current device.  Returns the
+    entry point's code (:func:`check`)."""
+    if device == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
+
+
+def operand_device(kernel, a, b):
+    """:func:`on_cuda`'s checks of two operands, by plain attribute
+    compares: one dtype among :data:`SUFFIXES`, one device, contiguous.
+    Returns the CUDA device index (launch the kernel), or -1 for CPU
+    tensors (run the plain version); any other device raises."""
+    dtype = a.dtype
+    if dtype not in DTYPE_NAMES:
+        names = " or ".join(DTYPE_NAMES.values())
+        raise TypeError(f"{kernel}: {names} operands, got {dtype}")
+    if b.dtype != dtype:
+        raise TypeError(f"{kernel}: mixed dtypes {dtype} and {b.dtype}")
+    if a.is_cuda and b.is_cuda:
+        index = a.get_device()
+        if b.get_device() != index:
+            raise ValueError(f"{kernel}: operands on {a.device} and {b.device}")
+    elif a.is_cpu and b.is_cpu:
+        index = -1
+    elif a.device != b.device:
+        raise ValueError(f"{kernel}: operands on {a.device} and {b.device}")
+    else:
+        raise ValueError(f"{kernel}: CPU or CUDA tensors, got {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError(f"{kernel}: operands must be contiguous")
+    return index
 
 
 def launch_context(device):

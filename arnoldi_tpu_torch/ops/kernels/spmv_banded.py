@@ -12,9 +12,17 @@ The shard form, :func:`banded_matvec_ext` and :func:`banded_matmat_ext`
 window of ``x``: the sharded operators of ``parallel/`` (the ring halo's
 extended window, the all-gather's whole vector), with its plain version
 :func:`banded_matvec_ext_plain`.
+
+Every form launches through one lean path, since a single-column launch
+takes about 0.01 ms on the card and the host's work per call set its pace:
+the C entry points are resolved once, the offsets' host array once per
+offsets (:func:`launch_plan`), the operands are checked by plain attribute
+compares (:func:`_build.operand_device`) and the stream handle is read raw
+(:func:`_build.launch`).
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -23,6 +31,8 @@ from . import _build
 #: Offsets the kernel takes as an argument; ``as_operator`` routes a matrix
 #: to the banded format only with this many distinct diagonals or fewer.
 MAX_OFFSETS = 16
+
+_entries = None   # {dtype: C entry point}, resolved on the first launch
 
 
 def banded_matvec_plain(bands, x, offsets):
@@ -41,27 +51,44 @@ def banded_matvec_plain(bands, x, offsets):
     return y
 
 
-def _launch(kernel, wrapper, bands, x, offsets):
+@functools.lru_cache(maxsize=64)
+def launch_plan(offsets):
+    """What a launch with these offsets (a tuple) passes the kernel, built
+    once per offsets: ``(offsets as ints, k, the host int64 array the C
+    entry point reads)``."""
     offsets = tuple(int(o) for o in offsets)
-    cuda = _build.on_cuda(kernel, bands, x)
-    k, n = bands.shape
-    if x.shape[-1:] != (n,) or len(offsets) != k:
+    k = len(offsets)
+    return offsets, k, (ctypes.c_longlong * max(k, 1))(*offsets)
+
+
+def _dia(device, bands, x, y, rows, k, array, nb, bstride, row0, x_base, x_len,
+         kernel):
+    """Launch the kernel on CUDA device ``device`` (operands checked)."""
+    global _entries
+    if _entries is None:
+        _entries = _build.entry_points("arn_spmv_dia")
+    rc = _build.launch(_entries[x.dtype], device, bands.data_ptr(), x.data_ptr(),
+                       y.data_ptr(), rows, k, array, nb, bstride, row0, x_base,
+                       x_len)
+    if rc:
+        _build.check(rc, kernel)
+
+
+def _launch(kernel, wrapper, bands, x, offsets):
+    device = _build.operand_device(kernel, bands, x)
+    offsets, k, array = launch_plan(tuple(offsets))
+    if bands.ndim != 2 or bands.shape[0] != k or x.shape[-1] != bands.shape[1]:
         raise ValueError(f"{kernel}: bands {tuple(bands.shape)}, x "
-                         f"{tuple(x.shape)}, {len(offsets)} offsets")
-    if not cuda:
+                         f"{tuple(x.shape)}, {k} offsets")
+    if device < 0:
         return banded_matvec_plain(bands, x, offsets)
     if k > MAX_OFFSETS:
         raise ValueError(f"{kernel}: the kernel takes at most {MAX_OFFSETS} "
                          f"diagonals, got {k}")
+    n = bands.shape[1]
     y = torch.empty_like(x)
-    nb = x.shape[0] if x.ndim == 2 else 1
-    offs = (ctypes.c_longlong * max(k, 1))(*offsets)
-    fn = _build.kernel_fn("arn_spmv_dia", x.dtype)
-    guard, stream = _build.launch_context(x.device)
-    with guard:
-        rc = fn(bands.data_ptr(), x.data_ptr(), y.data_ptr(), n, k, offs, nb,
-                stream)
-    _build.check(rc, kernel)
+    _dia(device, bands, x, y, n, k, array, x.shape[0] if x.ndim == 2 else 1,
+         n, 0, 0, n, kernel)
     _build.count_launch(wrapper, x.dtype)
     return y
 
@@ -113,29 +140,24 @@ def banded_matvec_ext_plain(bands, x, offsets, *, x_base, row0=0, rows=None):
 
 
 def _launch_ext(kernel, wrapper, bands, x, offsets, x_base, row0, rows):
-    offsets = tuple(int(o) for o in offsets)
-    cuda = _build.on_cuda(kernel, bands, x)
-    k, n_band = bands.shape
+    device = _build.operand_device(kernel, bands, x)
+    offsets, k, array = launch_plan(tuple(offsets))
+    n_band = bands.shape[-1]
     rows = n_band - row0 if rows is None else int(rows)
-    if len(offsets) != k or not (0 <= row0 and 0 <= rows
-                                 and row0 + rows <= n_band):
-        raise ValueError(f"{kernel}: bands {tuple(bands.shape)}, {len(offsets)} "
+    if bands.ndim != 2 or bands.shape[0] != k or not (
+            0 <= row0 and 0 <= rows and row0 + rows <= n_band):
+        raise ValueError(f"{kernel}: bands {tuple(bands.shape)}, {k} "
                          f"offsets, rows [{row0}, {row0 + rows})")
-    if not cuda:
+    if device < 0:
         return banded_matvec_ext_plain(bands, x, offsets, x_base=x_base,
                                        row0=row0, rows=rows)
     if k > MAX_OFFSETS:
         raise ValueError(f"{kernel}: the kernel takes at most {MAX_OFFSETS} "
                          f"diagonals, got {k}")
     nb = x.shape[0] if x.ndim == 2 else 1
-    y = torch.empty((*x.shape[:-1], rows), dtype=x.dtype, device=x.device)
-    offs = (ctypes.c_longlong * max(k, 1))(*offsets)
-    fn = _build.kernel_fn("arn_spmv_dia_ext", x.dtype)
-    guard, stream = _build.launch_context(x.device)
-    with guard:
-        rc = fn(bands.data_ptr(), x.data_ptr(), y.data_ptr(), rows, k, offs, nb,
-                n_band, row0, int(x_base), x.shape[-1], stream)
-    _build.check(rc, kernel)
+    y = x.new_empty((nb, rows) if x.ndim == 2 else (rows,))
+    _dia(device, bands, x, y, rows, k, array, nb, n_band, row0, int(x_base),
+         x.shape[-1], kernel)
     _build.count_launch(wrapper, x.dtype)
     return y
 

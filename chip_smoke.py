@@ -17,7 +17,10 @@ nonzero before the last line is printed):
    DIA on the pencil's one-band mass matrix (b = 1 and 5); compute
    each kernel's bound (bytes over 3.35 TB/s or flops over the fp64 rate,
    whichever is larger) and time the one PyTorch call that computes the same
-   function (cuSPARSE through ``torch.sparse``, cuBLAS) as its yardstick;
+   function (cuSPARSE through ``torch.sparse``, cuBLAS) as its yardstick,
+   each kernel (and each DIA form's yardstick) also by the host time a
+   call takes to issue (the host clock over 1000 calls, read before the
+   synchronize);
    then ELL at edge shapes (row lengths 1-129 around the 32-slot rule, b =
    1, 3, 8, 11, a row count that is not a multiple of the tile, unaligned
    views) and on the symmetrized matrix S (L = 129) with its times; then
@@ -196,9 +199,10 @@ shift-invert solve finds (``PERF.md`` §2).
     h rows alone, and the block against the whole vector as the all-gather
     runs it): laplace_2d(724)'s (262,088 rows, h = 724) in float64 and
     complex128 and solve E9's 9-band layout (524,288 rows, h = 4) in
-    float64; timed (laplace, float64) beside its bound and cuSPARSE's CSR
-    product of the shard's window, every device time over copies of the
-    inputs that pass the L2 (``cold``); then the rectangular
+    float64; timed (laplace, float64 and complex128) beside its bound and
+    cuSPARSE's CSR product of the shard's window, every device time over
+    copies of the inputs that pass the L2 (``cold``), with the host
+    enqueue time of both; then the rectangular
     ELL and BSR-8 shards of the scattered matrix (halo 2^14 rows, 2^11 block
     rows) against their plain versions, the BSR kernel printed;
 41. solve A's configuration through ``sharded_partial_schur`` over a
@@ -229,8 +233,10 @@ shift-invert solve finds (``PERF.md`` §2).
 After phase 34 (outside every counted window) ``spmv_dia_cols`` on
 laplace_3d(64) and ``spmv_ell_cols`` on laplace_3d(48) as ELL are held
 against their plain versions at the filter's widths (b = 32, 64, each
-slice's s and 8 x 37 + 3) in float64 and float32 and timed at b = s beside
-their bound and cuSPARSE's SpMM, and one sweep of phase 32's first slice
+slice's s and 8 x 37 + 3) in float64 and float32 (every column of the
+DIA kernel bit for bit against the single-column kernel) and timed at b =
+s beside their bound and cuSPARSE's SpMM (DIA with both enqueue times),
+and one sweep of phase 32's first slice
 runs under the profiler (device time by kernel family, busy share).
 
 Solves M, N and O run twice and must count the same matvecs both times;
@@ -318,6 +324,19 @@ def cuda_ms(fn, reps=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def enqueue_us(fn, calls=1000):
+    """Host microseconds ``fn()`` takes to issue its work: the host clock
+    over ``calls`` calls, read before the synchronize that follows them."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / calls
+    sync()
+    return us
 
 
 def device_ms(fn, reps=20):
@@ -440,14 +459,21 @@ class KernelRecord:
         self.library_ms = None      # one PyTorch call computing the same function
         self.library_dev_ms = None  # that call's profiler device time
         self.library = "none"       # that call, or why there is none
+        self.enqueue_us = None      # host time a call takes to issue
+        self.library_enqueue_us = None
+        self.library_enqueue = False
 
-    def time(self, kernel, plain, cold_kernel=None):
+    def time(self, kernel, plain, cold_kernel=None, library_enqueue=False):
         """Time the kernel (CUDA events; profiler device time, of
-        ``cold_kernel`` where given: the kernel over ``cold`` copies) and
-        its plain version."""
+        ``cold_kernel`` where given: the kernel over ``cold`` copies; the
+        host time a call takes to issue) and its plain version;
+        ``library_enqueue``: ``time_library`` takes its call's enqueue time
+        too (the DIA records)."""
         self.ms = cuda_ms(kernel)
         self.dev_ms = device_ms(kernel if cold_kernel is None else cold_kernel)
         self.plain_ms = cuda_ms(plain)
+        self.enqueue_us = enqueue_us(kernel)
+        self.library_enqueue = library_enqueue
 
     def set_bound(self, nbytes, flops):
         import torch
@@ -465,11 +491,14 @@ class KernelRecord:
     def time_library(self, label, fn, want, cold_fn=None):
         """Time ``fn`` (one PyTorch call, operands built beforehand) as this
         kernel's yardstick, by CUDA events and by the profiler's device time
-        (of ``cold_fn`` where given, as the kernel's was taken), after
-        checking it computes the same values."""
+        (of ``cold_fn`` where given, as the kernel's was taken; and its
+        enqueue time where the kernel's was taken), after checking it
+        computes the same values."""
         rel, _ = rel_err(fn(), want)
         self.library, self.library_ms = label, cuda_ms(fn)
         self.library_dev_ms = device_ms(fn if cold_fn is None else cold_fn)
+        if self.library_enqueue:
+            self.library_enqueue_us = enqueue_us(fn)
         dev = ("device not measured" if self.library_dev_ms is None
                else f"device {self.library_dev_ms:.4f} ms")
         print(f"  library {label}: {self.library_ms:.4f} ms, {dev} (rel err "
@@ -526,7 +555,7 @@ def phase_kernels(mats):
 
             r.time(kernel,
                    lambda: spmv_banded.banded_matvec_plain(op.bands, x, op.offsets),
-                   cold(kernel, op.bands, x))
+                   cold(kernel, op.bands, x), library_enqueue=True)
             n = op.shape[0]
             r.set_bound(op.bands.numel() * 8 + 2 * n * 8, 2 * op.bands.numel())
             A_csr = csr_tensor(mats["laplace"], dtype, dev)
@@ -684,7 +713,7 @@ def phase_kernels_cols_and_bsr(mats, rec, gen):
         r = rec[name]
         r.check(label, dtype, kernel(), plain())
         if timed and dtype == torch.float64:
-            r.time(kernel, plain)
+            r.time(kernel, plain, library_enqueue=name.startswith("spmv_dia"))
         return timed and dtype == torch.float64
 
     # The tolerances: as above, each kernel sums the same products as its
@@ -1829,7 +1858,7 @@ def phase_complex_kernels(mats, gen, device="cuda"):
                 return A @ rhs
 
             r.check(f"DIA gauge laplace_2d(724) b={nb}", dtype, kernel(), plain())
-            r.time(kernel, plain, cold(kernel, op.bands, arg))
+            r.time(kernel, plain, cold(kernel, op.bands, arg), library_enqueue=True)
             r.set_bound(op.bands.numel() * item + 2 * nb * n * item,
                         8 * op.bands.numel() * nb)
             r.time_library(f"A_csr @ {'x' if nb == 1 else 'Xt'} (cuSPARSE "
@@ -1938,6 +1967,10 @@ def print_time(name, r):
         lib += f" (device {r.library_dev_ms:.4f} ms)"
     dev = ("device not measured" if r.dev_ms is None else
            f"device {r.dev_ms:.4f} ms, {100 * r.bound_ms / r.dev_ms:.0f} %")
+    if r.enqueue_us is not None:
+        dev += f", enqueue {r.enqueue_us:.2f} us"
+    if r.library_enqueue_us is not None:
+        lib += f" (enqueue {r.library_enqueue_us:.2f} us)"
     print(f"  time {name:<28} kernel {r.ms:.4f} ms   plain {r.plain_ms:.4f} ms   "
           f"bound {r.bound_ms:.4f} ms ({r.bound_by}; {100 * r.bound_ms / r.ms:.0f} %; "
           f"{dev})   library {lib}: {r.library}")
@@ -2753,7 +2786,9 @@ def phase_filter_kernels(mats, widths, gen, device="cuda"):
     slice's s and 8k + 3, in float64 and float32; timed (events and
     profiler device time), bound (bands or nonzeros read once, X read and
     Y written once) and cuSPARSE's SpMM at b = the g = 64 slice's s in
-    float64 (DIA) and at b = phase 33's s in float32 (ELL).  Returns
+    float64 (DIA, with the host enqueue time of both) and at b = phase
+    33's s in float32 (ELL); every column of the DIA b-column kernel at
+    every width bit for bit against the single-column kernel.  Returns
     ``{record name: KernelRecord}``."""
     import torch
 
@@ -2787,10 +2822,19 @@ def phase_filter_kernels(mats, widths, gen, device="cuda"):
             item = torch.empty((), dtype=dtype).element_size()
             for b in sorted({32, 64, FILTER_TAIL, *slice_widths}):
                 X = torch.randn(b, op.shape[1], generator=gen, device=dev, dtype=dtype)
-                r.check(f"{label} {tuple(op.shape)} b={b}", dtype,
-                        op.matmat_rows(X), plain(X))
+                Y = op.matmat_rows(X)
+                r.check(f"{label} {tuple(op.shape)} b={b}", dtype, Y, plain(X))
+                if fmt is BandedOperator:
+                    # every column, bit for bit, is the single-column kernel's
+                    single = torch.stack([op.matvec(X[j]) for j in range(b)])
+                    if not torch.equal(Y, single):
+                        fail(f"{name} b={b} {dtype}: a column differs from "
+                             "the single-column kernel")
+                    del single
+                del Y
                 if b == max(slice_widths) and dtype == timed:
-                    r.time(lambda: op.matmat_rows(X), lambda: plain(X))
+                    r.time(lambda: op.matmat_rows(X), lambda: plain(X),
+                           library_enqueue=fmt is BandedOperator)
                     r.set_bound(nbytes(b), 2 * op.nnz * b)
                     A_csr, Xt = csr_tensor(mats[key], dtype, dev), X.T.contiguous()
                     r.time_library(f"A_csr @ Xt (cuSPARSE SpMM, b={b})",
@@ -3276,8 +3320,9 @@ def phase_shard_kernels(mats, rec, gen, device="cuda"):
     window, its first and last h rows alone (the rows the overlapped pass
     recomputes) and the block against the whole vector (the all-gather).
     Shards of laplace_2d(724) (5 bands, 262,088 rows, h = 724: solves A, I
-    and phase 44) in float64 and complex128, timed (float64) beside their
-    bound and cuSPARSE's CSR product of the shard's window; and of solve
+    and phase 44) in float64 and complex128, each timed beside its bound
+    and cuSPARSE's CSR product of the shard's window (the complex128
+    records returned, ``{name: KernelRecord}``); and of solve
     E9's 9-band 2^20-row layout (random bands at offsets -4..4, 524,288
     rows, h = 4), float64.  Then the rectangular ELL and BSR-8 shards of
     the scattered matrix (halo 2^14 rows, 2^11 block rows) against theirs.
@@ -3299,6 +3344,7 @@ def phase_shard_kernels(mats, rec, gen, device="cuda"):
                   torch.float64))
     forms = ((1, "spmv_dia_ext", spmv_banded.banded_matvec_ext),
              (8, "spmv_dia_ext_cols", spmv_banded.banded_matmat_ext))
+    crec = {name: KernelRecord(torch.complex128) for _, name, _ in forms}
     for matrix, square, dtype in cases:
         op = cast_operator(square, dtype)
         n = op.shape[0]
@@ -3322,8 +3368,9 @@ def phase_shard_kernels(mats, rec, gen, device="cuda"):
                         wrap(local.bands, xx, local.offsets, **kw),
                         spmv_banded.banded_matvec_ext_plain(
                             local.bands, xx, local.offsets, **kw))
-                if matrix == "laplace_2d(724)" and dtype == torch.float64 and rank == 1:
-                    time_shard_form(rec[name], wrap, local, x, nb,
+                if matrix == "laplace_2d(724)" and rank == 1:
+                    time_shard_form(rec[name] if dtype == torch.float64
+                                    else crec[name], wrap, local, x, nb,
                                     shard_window_csr(A, row0, row0 + n_local, h),
                                     dev)
         del op, local, x, x_all
@@ -3361,14 +3408,15 @@ def phase_shard_kernels(mats, rec, gen, device="cuda"):
     sync()
     for name in ("spmv_dia_ext", "spmv_dia_ext_cols"):
         print_time(name, rec[name])
+        print_time(f"{name}:complex128", crec[name])
+    return crec
 
 
 def time_shard_form(r, wrap, local, x, nb, window, dev):
     """Time a DIA shard form on its block ``local`` against the halo
-    window ``x`` (events, cold device time), beside its bound and
-    cuSPARSE's CSR product of the shard's ``window`` (SciPy)."""
-    import torch
-
+    window ``x`` (events, cold device time, host enqueue), beside its bound
+    and cuSPARSE's CSR product of the shard's ``window`` (SciPy) in
+    ``x``'s dtype."""
     from arnoldi_tpu_torch.ops.kernels import spmv_banded
 
     h = local.x_base
@@ -3380,11 +3428,11 @@ def time_shard_form(r, wrap, local, x, nb, window, dev):
         return spmv_banded.banded_matvec_ext_plain(local.bands, x, local.offsets,
                                                    x_base=h)
 
-    r.time(kernel, plain, cold(kernel, local.bands, x))
-    n_local = local.bands.shape[1]
-    r.set_bound((local.bands.numel() + nb * (2 * n_local + 2 * h)) * 8,
-                2 * local.bands.numel() * nb)
-    W = csr_tensor(window, torch.float64, dev)
+    r.time(kernel, plain, cold(kernel, local.bands, x), library_enqueue=True)
+    n_local, item = local.bands.shape[1], x.element_size()
+    r.set_bound((local.bands.numel() + nb * (2 * n_local + 2 * h)) * item,
+                (8 if x.is_complex() else 2) * local.bands.numel() * nb)
+    W = csr_tensor(window, x.dtype, dev)
     XT = x if nb == 1 else x.T.contiguous()
 
     def library(W=W, XT=XT):
@@ -4038,7 +4086,8 @@ def run_phases(mats, references, smi):
     print("phase 40: the DIA shard form and the ELL/BSR shards against their plain "
           "versions (not counted)")
     t0 = time.perf_counter()
-    phase_shard_kernels(mats, rec, torch.Generator(device="cuda").manual_seed(6))
+    shard_crec = phase_shard_kernels(mats, rec,
+                                     torch.Generator(device="cuda").manual_seed(6))
     print(f"  phase 40 wall {time.perf_counter() - t0:.2f} s")
 
     # The sharded path, counted on its own: this process and the ranks.
@@ -4047,6 +4096,7 @@ def run_phases(mats, references, smi):
     p_rows, p_extra, rank_counts = phase_parallel(mats, counts, refs, references)
     p_wall = time.perf_counter() - t0
     p_counts = {name: v + rank_counts.get(name, 0) for name, v in counts().items()}
+    p_dtypes = kernels.dtype_launch_counts()   # this process's (the ranks' are float64)
     bsr_halo = p_extra["C2"]["kernel"]
     idle = [k for k in PARALLEL_KERNELS + (bsr_halo,) if p_counts[k] == 0]
     if idle:
@@ -4080,6 +4130,8 @@ def run_phases(mats, references, smi):
          "bound_ms": rec[name].bound_ms, "bound_by": rec[name].bound_by,
          "library_ms": rec[name].library_ms, "dev_ms": rec[name].dev_ms,
          "library_dev_ms": rec[name].library_dev_ms,
+         "enqueue_us": rec[name].enqueue_us,
+         "library_enqueue_us": rec[name].library_enqueue_us,
          "launches_phases_14_17": refine_path[name], "dtypes": final_dtypes[name],
          "launches_phases_19_25": complex_counts[name],
          "dtypes_phases_19_25": complex_dtypes[name],
@@ -4098,8 +4150,20 @@ def run_phases(mats, references, smi):
          "launches": complex_dtypes[name].get(tag, 0), "max_abs_err": r.max_abs_err,
          "ms": r.ms, "plain_ms": r.plain_ms, "bound_ms": r.bound_ms,
          "bound_by": r.bound_by, "library_ms": r.library_ms, "dev_ms": r.dev_ms,
-         "library_dev_ms": r.library_dev_ms, "library": r.library}
+         "library_dev_ms": r.library_dev_ms, "library": r.library,
+         "enqueue_us": r.enqueue_us, "library_enqueue_us": r.library_enqueue_us}
         for (name, tag), r in crec.items()]
+    # The complex128 shard forms (phase 40): "launches" counts phases
+    # 41-44's in complex128 (the sharded solves run float64).
+    report["kernels"] += [
+        {"name": f"{name}:complex128", "route": "cuda",
+         "source": kernels.KERNELS[name][1], "replaces": kernels.KERNELS[name][2],
+         "dtype": "complex128", "launches": p_dtypes[name].get("complex128", 0),
+         "max_abs_err": r.max_abs_err, "ms": r.ms, "plain_ms": r.plain_ms,
+         "bound_ms": r.bound_ms, "bound_by": r.bound_by, "library_ms": r.library_ms,
+         "dev_ms": r.dev_ms, "library_dev_ms": r.library_dev_ms, "library": r.library,
+         "enqueue_us": r.enqueue_us, "library_enqueue_us": r.library_enqueue_us}
+        for name, r in shard_crec.items()]
     # The complex BSR forms: "launches" counts phases 35-39's in the dtype.
     report["kernels"] += [
         {"name": f"{name}:{tag}", "route": "cuda", "source": kernels.KERNELS[name][1],
@@ -4119,7 +4183,8 @@ def run_phases(mats, references, smi):
          "launches": f_dtypes[base].get(str(r.dtype).removeprefix("torch."), 0),
          "max_abs_err": r.max_abs_err, "ms": r.ms, "plain_ms": r.plain_ms,
          "bound_ms": r.bound_ms, "bound_by": r.bound_by, "library_ms": r.library_ms,
-         "dev_ms": r.dev_ms, "library_dev_ms": r.library_dev_ms, "library": r.library}
+         "dev_ms": r.dev_ms, "library_dev_ms": r.library_dev_ms, "library": r.library,
+         "enqueue_us": r.enqueue_us, "library_enqueue_us": r.library_enqueue_us}
         for name, r in frec.items() for base in (name.split(":")[0],)]
     print(json.dumps(report))
     print(smi)

@@ -264,3 +264,160 @@ def test_complex_kernels_match_plain_on_the_card(b, L, dtype, cuda_device):
         torch.cuda.synchronize()
         assert got.dtype == dtype
         assert float((got - want).norm() / want.norm()) <= limit
+
+
+# -- the DIA wrappers' lean launch path -------------------------------------
+
+from arnoldi_tpu_torch.ops.kernels import _build, spmv_banded  # noqa: E402
+
+def _two_columns(x):
+    """Two columns like ``x`` as a (2, n) array, strided where ``x`` is."""
+    if x.is_contiguous():
+        return torch.stack([x, x])
+    return torch.ones(2, 2 * x.shape[0], dtype=x.dtype, device=x.device)[:, ::2]
+
+
+DIA_FORMS = {
+    "spmv_dia": lambda bands, x, offsets, **kw: spmv_banded.banded_matvec(
+        bands, x, offsets),
+    "spmv_dia_cols": lambda bands, x, offsets, **kw: spmv_banded.banded_matmat(
+        bands, _two_columns(x), offsets),
+    "spmv_dia_ext": lambda bands, x, offsets, **kw: spmv_banded.banded_matvec_ext(
+        bands, x, offsets, x_base=0, **kw),
+    "spmv_dia_ext_cols": lambda bands, x, offsets, **kw: spmv_banded.banded_matmat_ext(
+        bands, _two_columns(x), offsets, x_base=0, **kw),
+}
+OFFS3 = (0, 1, -1)
+
+
+def _bad_dtype():
+    return torch.ones(3, 10).half(), torch.ones(10).half(), OFFS3
+
+
+def _mixed_dtypes():
+    return torch.ones(3, 10, dtype=torch.float64), torch.ones(10), OFFS3
+
+
+def _mixed_devices():
+    return (torch.ones(3, 10, dtype=torch.float64),
+            torch.ones(10, dtype=torch.float64, device="meta"), OFFS3)
+
+
+def _other_device():
+    return (torch.ones(3, 10, dtype=torch.float64, device="meta"),
+            torch.ones(10, dtype=torch.float64, device="meta"), OFFS3)
+
+
+def _strided_x():
+    return (torch.ones(3, 10, dtype=torch.float64),
+            torch.ones(20, dtype=torch.float64)[::2], OFFS3)
+
+
+def _strided_bands():
+    return (torch.ones(10, 3, dtype=torch.float64).T,
+            torch.ones(10, dtype=torch.float64), OFFS3)
+
+
+def _short_x():
+    return torch.ones(3, 10, dtype=torch.float64), torch.ones(9, dtype=torch.float64), OFFS3
+
+
+def _offsets_count():
+    return torch.ones(3, 10, dtype=torch.float64), torch.ones(10, dtype=torch.float64), (0, 1)
+
+
+def _flat_bands():
+    return torch.ones(30, dtype=torch.float64), torch.ones(30, dtype=torch.float64), OFFS3
+
+
+#: bad operands -> (exception, message); the x-length case is the square
+#: forms' (a shard form's window may be any length)
+BAD_DIA_OPERANDS = {
+    "dtype": (_bad_dtype, TypeError, "float32 or float64"),
+    "mixed_dtypes": (_mixed_dtypes, TypeError, "mixed dtypes"),
+    "mixed_devices": (_mixed_devices, ValueError, "operands on cpu and meta"),
+    "other_device": (_other_device, ValueError, "CPU or CUDA"),
+    "strided_x": (_strided_x, ValueError, "contiguous"),
+    "strided_bands": (_strided_bands, ValueError, "contiguous"),
+    "x_length": (_short_x, ValueError, "bands"),
+    "offsets_count": (_offsets_count, ValueError, "offsets"),
+    "bands_1d": (_flat_bands, ValueError, "bands"),
+}
+
+
+@pytest.mark.parametrize("form,bad", [
+    (form, bad) for form in sorted(DIA_FORMS) for bad in sorted(BAD_DIA_OPERANDS)
+    if not (bad == "x_length" and "ext" in form)])
+def test_dia_wrappers_reject_bad_operands(form, bad):
+    make, exc, match = BAD_DIA_OPERANDS[bad]
+    bands, x, offsets = make()
+    with pytest.raises(exc, match=match):
+        DIA_FORMS[form](bands, x, offsets)
+
+
+@pytest.mark.parametrize("form", sorted(DIA_FORMS))
+def test_dia_wrappers_reject_more_than_16_offsets(form, monkeypatch):
+    """The kernel takes 16 offsets; the check runs before any allocation
+    or launch (a CUDA device is faked: the plain version on the CPU takes
+    any number)."""
+    bands = torch.ones(17, 40, dtype=torch.float64)
+    x = torch.ones(40, dtype=torch.float64)
+    offsets = tuple(range(-8, 9))
+    # the plain version on the CPU takes them
+    assert DIA_FORMS[form](bands, x, offsets).shape[-1] == 40
+    monkeypatch.setattr(_build, "operand_device", lambda kernel, a, b: 0)
+    with pytest.raises(ValueError, match="at most 16 diagonals, got 17"):
+        DIA_FORMS[form](bands, x, offsets)
+
+
+@pytest.mark.parametrize("row0,rows", [(-1, 5), (0, 41), (30, 11), (40, 1), (0, -1)])
+@pytest.mark.parametrize("form", ["spmv_dia_ext", "spmv_dia_ext_cols"])
+def test_dia_shard_rejects_rows_out_of_bounds(form, row0, rows):
+    bands = torch.ones(3, 40, dtype=torch.float64)
+    x = torch.ones(44, dtype=torch.float64)
+    with pytest.raises(ValueError, match="rows"):
+        DIA_FORMS[form](bands, x, OFFS3, row0=row0, rows=rows)
+
+
+#: hand-worked offsets: what the kernel is given
+LAUNCH_PLANS = {
+    "laplace_2d(724)": (-724, -1, 0, 1, 724),
+    "laplace_3d(64)": (-4096, -64, -1, 0, 1, 64, 4096),
+    "one band": (0,),
+    "sixteen": tuple(range(-8, 8)),
+    "one-sided": (3, 900, 2000),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAUNCH_PLANS))
+def test_launch_plan(case):
+    import ctypes
+
+    offsets = LAUNCH_PLANS[case]
+    got, k, array = spmv_banded.launch_plan(offsets)
+    assert got == offsets and k == len(offsets)
+    assert array._type_ is ctypes.c_longlong and list(array) == list(offsets)
+    assert spmv_banded.launch_plan(offsets)[2] is array   # built once
+
+
+def test_launch_plan_converts_and_handles_no_offsets():
+    got, k, array = spmv_banded.launch_plan((np.int64(-3), np.int32(5)))
+    assert got == (-3, 5) and all(type(o) is int for o in got)
+    assert (k, list(array)) == (2, [-3, 5])
+    got, k, array = spmv_banded.launch_plan(())
+    assert (got, k, len(array)) == ((), 0, 1)
+
+
+@pytest.mark.parametrize("b", [1, 2, 9])
+def test_dia_shard_base0_equals_square(b):
+    """The shard form with x_base = 0 over the whole vector is the square
+    form (the kernel runs both through one entry point)."""
+    rng = np.random.default_rng(b)
+    n, offsets = 301, (-17, -1, 0, 1, 17)
+    bands = torch.from_numpy(rng.standard_normal((5, n)))
+    X = torch.from_numpy(rng.standard_normal((b, n) if b > 1 else n))
+    square = (spmv_banded.banded_matmat if b > 1 else spmv_banded.banded_matvec)(
+        bands, X, offsets)
+    shard = (spmv_banded.banded_matmat_ext if b > 1 else spmv_banded.banded_matvec_ext)(
+        bands, X, offsets, x_base=0)
+    assert torch.equal(square, shard)
