@@ -76,11 +76,6 @@ def _check_padded_layout(kind, padded_elems, stored_elems, L, degrees):
         "use a host/CSR path for this operator")
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to arnoldi_tpu_torch yet (ROADMAP.md, {item})")
-
-
 def _require_device(device, what):
     if device is None:
         raise ValueError(

@@ -3,7 +3,9 @@
 Counterpart of ``arnoldi_tpu/parallel/`` (its double-word halo products
 are not ported): the mesh and its collectives, the sharded operators (the
 all-gather of ``x``, and the ring halo for banded, ELL and BSR
-operators), the multi-process helpers and ``sharded_partial_schur``.
+operators), the multi-process helpers and ``sharded_partial_schur``.  The
+drivers take the mesh as ``mesh=``: ``partial_schur``, ``partial_eigh``
+and the filtered drivers (``solvers/filtered.py``).
 """
 
 from .halo_spmv import (HaloOperator, banded_matvec_halo, bsr_matvec_halo,

@@ -137,8 +137,6 @@ class HaloOperator:
     operator's own values: a refined float32 solve continues on it (the
     port's counterpart of ``matvec_dw``)."""
 
-    sharded = True
-
     def __init__(self, local, mesh, n_global, halo, nnz):
         self.local, self.mesh, self.n_global = local, mesh, n_global
         self.halo, self._nnz = halo, nnz

@@ -26,6 +26,8 @@ import dataclasses
 
 import torch
 
+from ..utils.profiling import phase_clock
+
 #: Name of the row-partition axis (the JAX package's ``ROWS``).
 ROWS = "rows"
 
@@ -40,13 +42,18 @@ class Mesh:
 
     ``group`` is the ``torch.distributed`` process group (None for a
     one-rank mesh), ``device`` the device this rank computes on (the
-    operators' and the basis' device)."""
+    operators' and the basis' device).  ``clock`` times the host side of
+    the ring exchange (``mesh.ring_start``, and ``mesh.ring_wait`` for the
+    handle's wait: the staging copies and the transfer) when
+    ``ARNOLDI_PHASES`` is set (:func:`~..utils.profiling.phase_clock`)."""
 
     group: object
     rank: int
     size: int
     device: torch.device
     axis_name: str = ROWS
+    clock: object = dataclasses.field(default_factory=phase_clock, compare=False,
+                                      repr=False)
 
     @property
     def backend(self):
@@ -117,6 +124,10 @@ class Mesh:
         self._check()
         if self.group is None or self.size == 1:
             return _Done((right_edge, left_edge))
+        with self.clock("mesh.ring_start"):
+            return self._ring(left_edge, right_edge)
+
+    def _ring(self, left_edge, right_edge):
         import torch.distributed as dist
 
         staged = self._route(right_edge, p2p=True)
@@ -135,7 +146,7 @@ class Mesh:
                           _TAG_LEFTWARD)]
         reqs = dist.batch_isend_irecv(ops)
         return _Ring(reqs, recv_l, recv_r, right_edge.device if staged else None,
-                     (send_r, send_l))
+                     (send_r, send_l), self.clock)
 
     def barrier(self):
         self._check()
@@ -154,17 +165,19 @@ class _Done:
 
 
 class _Ring:
-    def __init__(self, reqs, recv_l, recv_r, device, keep):
+    def __init__(self, reqs, recv_l, recv_r, device, keep, clock):
         self._reqs, self._recv, self._device = reqs, (recv_l, recv_r), device
         self._keep = keep       # the send buffers live until the wait
+        self._clock = clock
 
     def wait(self):
-        for req in self._reqs:
-            req.wait()
-        self._keep = None
-        if self._device is None:
-            return self._recv
-        return tuple(t.to(self._device) for t in self._recv)
+        with self._clock("mesh.ring_wait"):
+            for req in self._reqs:
+                req.wait()
+            self._keep = None
+            if self._device is None:
+                return self._recv
+            return tuple(t.to(self._device) for t in self._recv)
 
 
 def _wire(t):

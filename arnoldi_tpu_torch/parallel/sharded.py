@@ -114,8 +114,6 @@ class ShardedOperator:
     all-gather of ``x`` over the mesh and the format's kernel on the block
     (the GSPMD path of the JAX package).  Built by :func:`shard_operator`."""
 
-    sharded = True
-
     def __init__(self, local, mesh, n_global, nnz):
         self.local, self.mesh, self.n_global, self._nnz = (local, mesh,
                                                            n_global, nnz)
@@ -172,12 +170,30 @@ def _kernel_name(local):
     return "torch.matmul"
 
 
+def operator_mesh(op):
+    """The mesh ``op`` is sharded over: that of a :class:`ShardedOperator`
+    or a :class:`~.halo_spmv.HaloOperator`, None for any other operator."""
+    from .halo_spmv import HaloOperator        # it imports this module
+
+    return op.mesh if isinstance(op, (ShardedOperator, HaloOperator)) else None
+
+
+def check_operator_mesh(op, mesh):
+    """Whether ``op`` is sharded (:func:`operator_mesh`); raises
+    ``ValueError`` when it is sharded over another mesh than ``mesh``."""
+    own = operator_mesh(op)
+    if own is not None and ((own.group, own.rank, own.size)
+                            != (mesh.group, mesh.rank, mesh.size)):
+        raise ValueError("the operator is sharded over another mesh")
+    return own is not None
+
+
 def shard_operator(op, mesh):
     """This rank's row block of a square format operator (DIA, ELL, BSR or
     dense) whose row count the mesh divides, built once on the mesh's
     device; its products all-gather ``x``.  A sharded operator comes back
     as it is."""
-    if getattr(op, "sharded", False):
+    if operator_mesh(op) is not None:
         return op
     if isinstance(op, CallableOperator):
         raise TypeError(
@@ -227,10 +243,7 @@ def mesh_operator(A, mesh, device=None, dtype=None):
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh= takes an arnoldi_tpu_torch.parallel.Mesh, got "
                         f"{type(mesh).__name__}")
-    if getattr(A, "sharded", False):
-        if (A.mesh.group, A.mesh.rank, A.mesh.size) != (mesh.group, mesh.rank,
-                                                         mesh.size):
-            raise ValueError("the operator is sharded over another mesh")
+    if check_operator_mesh(A, mesh):
         return A, A.n_global, A.n_global
     op = as_operator(A, dtype=dtype, device=mesh.device if device is None
                      else device)

@@ -28,8 +28,23 @@ and NumPy input.  Eigenvalues come back as NumPy arrays, eigenvectors as
 ``(n, k)`` tensors on the operator's device.  ``refine=`` keeps the JAX
 package's values; the double-word continuation (``filtered.py:986-1210``)
 becomes the same sweep in float64 on the operator at its own values, as
-``solvers/refine.py`` does for the extremal drivers.  ``mesh=`` is not
-ported.
+``solvers/refine.py`` does for the extremal drivers.
+
+``mesh=`` (an :class:`~..parallel.Mesh`) runs every driver SPMD over a
+row mesh of ``torch.distributed`` ranks, as the JAX package runs them over
+a device mesh (``arnoldi_tpu/solvers/filtered.py:77-80, 277-282, 649-655,
+799-811, 1250-1255``): every rank calls the driver with the same
+arguments and holds its row block of the operator (``shard_operator``'s
+all-gather, or a ``HaloOperator`` passed in, whose mesh is the default)
+and its columns of every ``(s, n)`` block.  The start block, the bounds'
+start vector and the KPM probes are drawn whole from the generator on
+every rank and sliced, so a one-rank mesh repeats the unsharded solve bit
+for bit.  Every reduction over n (the CholQR2 Grams, the Rayleigh-Ritz
+matrix, row norms, the KPM moment vector once a pass) is a sum
+all-reduce, so every host decision reads the same numbers on every rank.
+Eigenvalues come back on every rank, eigenvectors as the rank's rows.
+The row count must divide the mesh: a padded zero row would add the
+eigenvalue 0, which a window holding 0 would return.
 """
 
 import os
@@ -41,13 +56,16 @@ import scipy.linalg as sla
 import torch
 
 from ..device import check_matmul_precision, solver_dtype, torch_dtype
-from ..linop import FORMAT_OPERATORS, _not_ported, cast_operator
-from ..ops.ortho import block_cgs2
+from ..linop import FORMAT_OPERATORS, CallableOperator, cast_operator
+from ..ops.ortho import _reduce, block_cgs2
+from ..parallel.mesh import local_rows
+from ..parallel.sharded import check_operator_mesh, operator_mesh, shard_operator
 from ..utils.history import History
 from ..utils.profiling import phase_clock
 from ..utils.random import rand_normalized_vector
 from . import refine as refinement
 from .decomposition import arnoldi_expand
+from .krylov_schur import check_mesh
 from .spectral_transform import _operator
 
 __all__ = [
@@ -65,9 +83,46 @@ __all__ = [
 PROBES = 8
 
 
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise _not_ported("mesh= (sharded filtered solves)", "Queue 1 item 1")
+def _filter_operator(A, dtype, device, mesh):
+    """``(op, mesh)``: ``A`` as an operator, and under a mesh (``mesh``, or
+    that of a sharded ``A``) this rank's row block of it: a sharded
+    operator of the mesh as it is, any other format operator through
+    :func:`~..parallel.shard_operator` (the all-gather of x) on the mesh's
+    device.  Raises ``ValueError`` when the mesh does not divide the row
+    count (no silent padding: a zero row adds the eigenvalue 0) and
+    ``TypeError`` for a callable."""
+    mesh = check_mesh(A, mesh)
+    if mesh is None:
+        return _operator(A, dtype, device), None
+    if check_operator_mesh(A, mesh):
+        return (A if dtype is None else cast_operator(A, torch_dtype(dtype))), mesh
+    op = _operator(A, dtype, mesh.device if device is None else device)
+    if not isinstance(op, CallableOperator) and op.shape[0] % mesh.size:
+        raise ValueError(
+            f"n={op.shape[0]} does not divide the {mesh.size}-rank mesh; "
+            "pad_operator first (the filtered drivers do not pad: a zero "
+            "row adds the eigenvalue 0, which a window holding 0 returns)")
+    return shard_operator(op, mesh), mesh
+
+
+def _n_global(op):
+    """The whole operator's row count (a sharded operator's ``n_global``)."""
+    return getattr(op, "n_global", op.shape[0])
+
+
+def _columns(W, mesh):
+    """This rank's columns of a whole ``(..., n)`` block (``W`` without a
+    mesh)."""
+    if mesh is None:
+        return W
+    row0, row1 = local_rows(W.shape[-1], mesh)
+    return W[..., row0:row1]
+
+
+def _row_norms(Y, mesh):
+    """The norms of the whole rows of ``Y`` whose columns the ranks hold."""
+    nrm = torch.linalg.vector_norm(Y, dim=1)
+    return nrm if mesh is None else torch.sqrt(mesh.all_reduce(nrm.square()))
 
 
 def _generator(generator):
@@ -84,20 +139,22 @@ def spectrum_bounds(A, m=40, *, generator=None, dtype=None, mesh=None,
     ``|beta u_last|`` plus half a percent of the spread: the Chebyshev
     recurrence diverges on an eigenvalue outside the enclosure.  The start
     vector is a unit Gaussian from ``generator`` (``_v0`` passes one in).
+    Under a ``mesh`` the run is the sharded expansion of ``partial_eigh``'s
+    (each rank its columns of the basis, the projections all-reduced) from
+    the rank's columns of the whole start vector.
     """
-    _refuse_mesh(mesh)
-    op = _operator(A, dtype, device)
-    n = op.shape[0]
+    op, mesh = _filter_operator(A, dtype, device, mesh)
+    n = _n_global(op)
     m = int(min(m, n - 1))
     if _v0 is None:
         v0 = rand_normalized_vector(n, op.dtype, device=op.device,
                                     generator=_generator(generator))
     else:
         v0 = torch.tensor(np.asarray(_v0), dtype=op.dtype, device=op.device)
-    Vt = torch.zeros((m + 1, n), dtype=op.dtype, device=op.device)
-    Vt[0] = v0
+    Vt = torch.zeros((m + 1, op.shape[0]), dtype=op.dtype, device=op.device)
+    Vt[0] = _columns(v0, mesh)
     H = torch.zeros((m + 1, m), dtype=op.dtype, device=op.device)
-    Vt, H, k = arnoldi_expand(op, Vt, H, max_dim=m)
+    Vt, H, k = arnoldi_expand(op, Vt, H, max_dim=m, mesh=mesh)
     Hh = H.cpu().numpy().astype(np.float64)
     Hk = Hh[:k, :k]
     theta, U = np.linalg.eigh(0.5 * (Hk + Hk.T))
@@ -197,15 +254,20 @@ def cheby_filter(op, X, coeffs, lmin, lmax):
     return Y
 
 
-def _rademacher(probes, n, dtype, device, generator):
-    Z = torch.randint(0, 2, (int(probes), n), generator=generator)
+def _rademacher(probes, n, dtype, device, generator, mesh=None):
+    """``(probes, n)`` Rademacher probes from ``generator`` (this rank's
+    columns of the whole block under a ``mesh``)."""
+    Z = _columns(torch.randint(0, 2, (int(probes), n), generator=generator),
+                 mesh)
     return Z.to(device=device, dtype=dtype).mul_(2).sub_(1)
 
 
-def _kpm_moments(op, Z, lmin, lmax, degree):
+def _kpm_moments(op, Z, lmin, lmax, degree, mesh=None):
     """Stochastic Chebyshev moments ``mu_j = mean_z z^T T_j(A~) z``,
     ``j = 0..degree``, in one recurrence pass over the probe block ``Z``;
-    a float64 NumPy array read from the device once at the end."""
+    a float64 NumPy array read from the device once at the end.  Under a
+    ``mesh`` each rank accumulates its columns' partial moments on the
+    device and the ``(degree + 1,)`` vector is all-reduced once."""
     c = 0.5 * (lmax + lmin)
     inv_e = 2.0 / (lmax - lmin)
     probes = Z.shape[0]
@@ -222,7 +284,7 @@ def _kpm_moments(op, Z, lmin, lmax, degree):
         T_next = _affine(op, T, c, 2.0 * inv_e).sub_(T_prev)
         moment(j, T_next)
         T_prev, T = T, T_next
-    return mu.cpu().numpy().astype(np.float64)
+    return _reduce(mu, mesh).cpu().numpy().astype(np.float64)
 
 
 def spectral_moments(op, degree, *, bounds, probes=PROBES, generator=None,
@@ -230,17 +292,20 @@ def spectral_moments(op, degree, *, bounds, probes=PROBES, generator=None,
     """The float64 Chebyshev moment vector ``(degree + 1,)`` of ``op`` over
     the enclosure ``bounds``, from ``probes`` Rademacher probes drawn from
     ``generator`` (``_Z`` passes the ``(probes, n)`` block in).  Costs
-    ``probes * (degree + 1)`` matvecs."""
-    _refuse_mesh(mesh)
+    ``probes * (degree + 1)`` matvecs.  Under a ``mesh`` the probes (and
+    ``_Z``) are the whole block, each rank filtering its columns."""
+    if mesh is not None or operator_mesh(op) is not None:
+        op, mesh = _filter_operator(op, None, None, mesh)
     if int(degree) < 1:
         raise ValueError(f"degree={degree}: the recurrence needs >= 1")
     lmin, lmax = float(bounds[0]), float(bounds[1])
     if _Z is None:
-        Z = _rademacher(probes, op.shape[0], op.dtype, op.device,
-                        _generator(generator))
+        Z = _rademacher(probes, _n_global(op), op.dtype, op.device,
+                        _generator(generator), mesh)
     else:
-        Z = torch.tensor(np.asarray(_Z), dtype=op.dtype, device=op.device)
-    return _kpm_moments(op, Z, lmin, lmax, degree)
+        Z = _columns(torch.tensor(np.asarray(_Z), dtype=op.dtype), mesh).to(
+            op.device)
+    return _kpm_moments(op, Z, lmin, lmax, degree, mesh)
 
 
 def count_from_moments(mu, interval, bounds, degree=None):
@@ -260,11 +325,11 @@ def estimate_window_count(A, interval, *, bounds=None, degree=120,
     operator inside ``interval`` (the KPM trace estimator over Rademacher
     probes).  Costs ``probes * (degree + 1)`` matvecs, plus the bounds'
     Lanczos run when ``bounds`` is None."""
-    _refuse_mesh(mesh)
-    op = _operator(A, dtype, device)
+    op, mesh = _filter_operator(A, dtype, device, mesh)
     generator = _generator(generator)
     if bounds is None:
-        lmin, lmax = spectrum_bounds(op, bounds_dim, generator=generator)
+        lmin, lmax = spectrum_bounds(op, bounds_dim, generator=generator,
+                                     mesh=mesh)
     else:
         lmin, lmax = float(bounds[0]), float(bounds[1])
     a = max(float(interval[0]), lmin)
@@ -273,7 +338,7 @@ def estimate_window_count(A, interval, *, bounds=None, degree=120,
         raise ValueError(f"window {interval} lies outside the spectral "
                          f"enclosure [{lmin}, {lmax}]")
     mu = spectral_moments(op, degree, bounds=(lmin, lmax), probes=probes,
-                          generator=generator)
+                          generator=generator, mesh=mesh)
     return count_from_moments(mu, (a, b), (lmin, lmax))
 
 
@@ -331,21 +396,20 @@ def _active_rows(res, tol_abs, s):
     return np.concatenate([active, done[: sb - active.size]])
 
 
-def _filter_gains(op, V, coeffs, lmin, lmax):
+def _filter_gains(op, V, coeffs, lmin, lmax, mesh=None):
     """``||p(A) v_i||`` of unit Ritz rows: a true owned pair sits in the
     filter's flat top (gain >= 0.9), a Ritz ghost (a mixture of uncaptured
     directions whose quotient lands in the window) below ~0.1."""
-    return torch.linalg.vector_norm(cheby_filter(op, V, coeffs, lmin, lmax),
-                                    dim=1)
+    return _row_norms(cheby_filter(op, V, coeffs, lmin, lmax), mesh)
 
 
-def _pending_gains(op, X, pending, coeffs, lmin, lmax):
+def _pending_gains(op, X, pending, coeffs, lmin, lmax, mesh=None):
     """:func:`_filter_gains` of the pending rows of ``X``, padded with row 0
     to a multiple of 8 rows (the JAX package's bucket, which the matvec
     count includes)."""
     p = int(pending.size)
     idx = np.concatenate([pending, np.zeros((-p) % 8, pending.dtype)])
-    gains = _filter_gains(op, X[_index(idx, X)], coeffs, lmin, lmax)
+    gains = _filter_gains(op, X[_index(idx, X)], coeffs, lmin, lmax, mesh)
     return gains.cpu().numpy().astype(np.float64)[:p]
 
 
@@ -377,20 +441,20 @@ def _ghost_gate(trace, sweep, pick, inside, res, theta, tol_abs, nev,
     return pick, inside, int(ghost.size), n_checked
 
 
-def _ritz(op, Q):
+def _ritz(op, Q, mesh=None):
     """Rayleigh-Ritz of ``op`` on the orthonormal rows ``Q``: Ritz rows
     (ascending theta), theta and residual norms (host float64)."""
     AQ = op.matmat_rows(Q)
-    S = (Q @ AQ.T).cpu().numpy().astype(np.float64)
+    S = _reduce(Q @ AQ.T, mesh).cpu().numpy().astype(np.float64)
     theta, U = np.linalg.eigh(0.5 * (S + S.T))
     Ut = _to(U.T, Q)
     V, AV = Ut @ Q, Ut @ AQ
     AV.addcmul_(_to(theta, Q)[:, None], V, value=-1.0)
-    res = torch.linalg.vector_norm(AV, dim=1)
+    res = _row_norms(AV, mesh)
     return V, theta, res.cpu().numpy().astype(np.float64)
 
 
-def _filter_rr_step(op, X, coeffs, lmin, lmax, active=None):
+def _filter_rr_step(op, X, coeffs, lmin, lmax, active=None, mesh=None):
     """One filtered sweep: filter all rows (or only ``active``, the others
     carried unchanged and the refreshed ones renormalized), CholQR2 with
     host-float64 whitening, Rayleigh-Ritz on ``op``, residual norms.
@@ -404,13 +468,13 @@ def _filter_rr_step(op, X, coeffs, lmin, lmax, active=None):
     else:
         idx = _index(active, X)
         Ya = cheby_filter(op, X[idx], coeffs, lmin, lmax)
-        nrm = torch.linalg.vector_norm(Ya, dim=1, keepdim=True)
+        nrm = _row_norms(Ya, mesh)[:, None]
         Ya.div_(torch.clamp(nrm, min=torch.finfo(Ya.dtype).tiny))
         Y = X.index_copy(0, idx, Ya)
         n_filtered = int(active.size)
-    Q1 = _to(_host_whiten(Y @ Y.T), Y) @ Y
-    Q = _to(_host_whiten(Q1 @ Q1.T), Q1) @ Q1
-    V, theta, res = _ritz(op, Q)
+    Q1 = _to(_host_whiten(_reduce(Y @ Y.T, mesh)), Y) @ Y
+    Q = _to(_host_whiten(_reduce(Q1 @ Q1.T, mesh)), Q1) @ Q1
+    V, theta, res = _ritz(op, Q, mesh)
     return V, theta, res, n_filtered
 
 
@@ -427,7 +491,7 @@ def _finalize_history(history, all_inside, n_found, matvecs, n_sweeps):
 
 
 def _refine_filtered(op64, X, *, win, own, lmin, lmax, degree, tol, scale,
-                     nev, history, min_inside=0, max_sweeps=12):
+                     nev, history, min_inside=0, max_sweeps=12, mesh=None):
     """Continue a stalled work-dtype subspace to ``tol`` in float64 on
     ``op64`` (the operator at its own values): the loop of the JAX
     package's ``_refine_filtered_dw`` without its double-word arithmetic.
@@ -457,8 +521,8 @@ def _refine_filtered(op64, X, *, win, own, lmin, lmax, degree, tol, scale,
                                                   lmin, lmax))
             n_f = int(act.size)
         matvecs += degree * n_f
-        X = _to(_host_whiten(X @ X.T), X) @ X
-        X, theta, res = _ritz(op64, X)
+        X = _to(_host_whiten(_reduce(X @ X.T, mesh)), X) @ X
+        X, theta, res = _ritz(op64, X, mesh)
         matvecs += s
         res_prev = res
         inside = np.nonzero((theta >= a) & (theta <= b))[0]
@@ -472,7 +536,7 @@ def _refine_filtered(op64, X, *, win, own, lmin, lmax, degree, tol, scale,
             history.residual_trace, sweep, pick, inside, res, theta,
             tol * scale, nev, center, scale,
             lambda pending: _pending_gains(op64, X, pending, coeffs, lmin,
-                                           lmax))
+                                           lmax, mesh))
         matvecs += degree * n_chk
         if os.environ.get("ARNOLDI_FILTER_VERBOSE"):
             print(f"[filtered/f64] sweep {sweep}: filtered={n_f} "
@@ -491,40 +555,49 @@ def _refine_filtered(op64, X, *, win, own, lmin, lmax, degree, tol, scale,
     return theta, X, res, pick, sweep + 1, matvecs
 
 
-def _work_operators(A, dtype, device, orig):
-    """``(op, op_src, wdtype)``: the operator in the real work dtype and
-    the one at the source's values (``orig`` when given) for a float64
-    continuation."""
-    op = _operator(A, None, device)
+def _work_operators(A, dtype, device, orig, mesh):
+    """``(op, op_src, wdtype, mesh)``: the operator in the real work dtype
+    and the one at the source's values (``orig`` when given) for a float64
+    continuation, this rank's row blocks under a mesh."""
+    op, mesh = _filter_operator(A, None, device, mesh)
     op_src = op if orig is None else orig
     wdtype = torch_dtype(dtype) if dtype is not None else solver_dtype(op.dtype)
     if wdtype.is_complex or op_src.dtype.is_complex:
         raise ValueError("eigsh_filtered is the real symmetric driver; "
                          "realify a complex operator first "
                          "(realify_operator)")
-    return cast_operator(op, wdtype), op_src, wdtype
+    return cast_operator(op, wdtype), op_src, wdtype, mesh
 
 
 def _refines(refine, op, wdtype, tol):
     refinement.check_refine(refine)
     if refine == "dw":
         return True
+    # a sharded operator is a format operator's row block
     return (refine == "auto" and wdtype == torch.float32 and tol < 1e-6
-            and isinstance(op, FORMAT_OPERATORS))
+            and (isinstance(op, FORMAT_OPERATORS) or operator_mesh(op) is not None))
 
 
-def _start_block(s, n, X0, wdtype, device, generator):
+def _start_block(s, n, X0, wdtype, device, generator, mesh=None):
     """The ``(s, n)`` start block: the rows of ``X0`` first (at most s),
-    the rest Gaussian rows from ``generator``, orthonormalized by CholQR2."""
+    the rest Gaussian rows from ``generator``, orthonormalized by CholQR2.
+    Under a ``mesh`` this rank's columns: the Gaussian rows are drawn whole
+    and sliced, ``X0`` holds the whole rows or this rank's columns."""
     k0 = 0 if X0 is None else min(int(X0.shape[0]), s)
-    X = torch.empty((s, n), dtype=wdtype, device=device)
+    n_local = n if mesh is None else n // mesh.size
+    X = torch.empty((s, n_local), dtype=wdtype, device=device)
     if k0:
         W = X0[:k0] if torch.is_tensor(X0) else torch.from_numpy(np.array(X0[:k0]))
+        if W.shape[1] == n != n_local:
+            W = _columns(W, mesh)
+        elif W.shape[1] != n_local:
+            raise ValueError(f"X0 has {W.shape[1]} columns; expected {n} (the "
+                             f"whole rows) or this rank's {n_local}")
         X[:k0] = W.to(device=device, dtype=wdtype)
     if k0 < s:
-        X[k0:] = torch.randn((s - k0, n), generator=generator,
-                             dtype=wdtype).to(device)
-    return block_cgs2(X, X, 0)[1]
+        X[k0:] = _columns(torch.randn((s - k0, n), generator=generator,
+                                      dtype=wdtype), mesh).to(device)
+    return block_cgs2(X, X, 0, mesh=mesh)[1]
 
 
 def eigsh_filtered(
@@ -581,11 +654,19 @@ def eigsh_filtered(
         its stall, then the same sweep in float64 on the operator at its
         own values (build it from the float64 source); the outputs are
         float64.  "dw" forces the continuation, None disables it.
-    X0 : warm-start rows ``(k0, n)`` (the rest of the block stays random).
-    device : where SciPy and NumPy input is placed.
+    mesh : an :class:`arnoldi_tpu_torch.parallel.Mesh` (``make_mesh``): every
+        rank calls the driver with the same arguments; the operator is a
+        sharded operator of the mesh (``halo_matvec_closure``, the ring
+        halo) or is sharded here (``shard_operator``, the all-gather of x),
+        and its row count must divide the mesh (``pad_operator``).
+    X0 : warm-start rows ``(k0, n)`` (the rest of the block stays random);
+        under a mesh the whole rows or this rank's columns.
+    device : where SciPy and NumPy input is placed (default the mesh's
+        device under a mesh).
 
     Returns ``(vals, vecs, history)``: eigenvalues ascending (NumPy),
-    eigenvectors as ``(n, k)`` columns on the operator's device, and a
+    eigenvectors as ``(n, k)`` columns on the operator's device (under a
+    mesh this rank's rows of them, the values on every rank), and a
     :class:`History` with the total matvecs and the per-sweep trace; its
     ``geometry`` attribute holds the owned ``interval``, the ``bounds``,
     the subspace ``s``, the ``degree``, the ``sweeps`` (all phases) and the
@@ -594,10 +675,9 @@ def eigsh_filtered(
     Raises ``RuntimeError("Has not converged !")`` when the pairs do not
     reach ``tol`` within ``max_iters`` sweeps.
     """
-    _refuse_mesh(mesh)
-    op, op_src, wdtype = _work_operators(A, dtype, device, _orig)
-    n = op.shape[0]
-    if op.shape[1] != n:
+    op, op_src, wdtype, mesh = _work_operators(A, dtype, device, _orig, mesh)
+    n = _n_global(op)
+    if op.shape[1] != op.shape[0]:
         raise ValueError(f"need a square operator, got {op.shape}")
     a, b = float(interval[0]), float(interval[1])
     if not a < b:
@@ -609,7 +689,8 @@ def eigsh_filtered(
 
     if bounds is None:
         with clock("filter.bounds"):
-            lmin, lmax = spectrum_bounds(op, bounds_dim, generator=generator)
+            lmin, lmax = spectrum_bounds(op, bounds_dim, generator=generator,
+                                         mesh=mesh)
     else:
         lmin, lmax = float(bounds[0]), float(bounds[1])
     a_m, b_m = max(a, lmin), min(b, lmax)
@@ -636,7 +717,7 @@ def eigsh_filtered(
         # defeat both.
         with clock("filter.count_probe"):
             mu2 = spectral_moments(op, cdeg2, bounds=(lmin, lmax),
-                                   generator=generator,
+                                   generator=generator, mesh=mesh,
                                    _Z=probes.get("count"))
         matvecs += PROBES * (cdeg2 + 1)
         expected = count_from_moments(mu2, (a_m, b_m), (lmin, lmax))
@@ -661,7 +742,7 @@ def eigsh_filtered(
         else:
             with clock("filter.sizing_probe"):
                 mu = spectral_moments(op, cdeg, bounds=(lmin, lmax),
-                                      generator=generator,
+                                      generator=generator, mesh=mesh,
                                       _Z=probes.get("sizing"))
             matvecs += PROBES * (cdeg + 1)
         # 2x the owned cluster in slice mode (a missed pair is a
@@ -683,7 +764,7 @@ def eigsh_filtered(
     if do_refine:
         tol = max(tol, 1e-5)
 
-    X = _start_block(s, n, X0, wdtype, op.device, generator)
+    X = _start_block(s, n, X0, wdtype, op.device, generator, mesh)
     verbose = bool(os.environ.get("ARNOLDI_FILTER_VERBOSE"))
     history = History.from_k(nev or 1)
     center = 0.5 * (a_m + b_m)
@@ -694,7 +775,7 @@ def eigsh_filtered(
         with clock("filter.sweep"):
             X, theta_h, res_h, n_f = _filter_rr_step(
                 op, X, coeffs, lmin, lmax,
-                active=_active_rows(res_prev, tol * scale, s))
+                active=_active_rows(res_prev, tol * scale, s), mesh=mesh)
         res_prev = res_h
         matvecs += degree * n_f + s     # the filter and the Rayleigh-Ritz product
         inside = np.nonzero((theta_h >= a_m) & (theta_h <= b_m))[0]
@@ -709,7 +790,8 @@ def eigsh_filtered(
         pick, inside, n_ghost, n_chk = _ghost_gate(
             trace, sweep, pick, inside, res_h, theta_h, tol * scale, nev,
             center, scale,
-            lambda pending: _pending_gains(op, X, pending, coeffs, lmin, lmax))
+            lambda pending: _pending_gains(op, X, pending, coeffs, lmin, lmax,
+                                           mesh))
         matvecs += degree * n_chk
         if verbose:
             print(f"[filtered] sweep {sweep}: degree={degree} s={s} "
@@ -753,7 +835,7 @@ def eigsh_filtered(
                 # pair out of the owned window: require most of the
                 # coarse inside count, not all of it
                 min_inside=(int(np.ceil(0.8 * inside.size)) if all_inside
-                            else (nev or 0)))
+                            else (nev or 0)), mesh=mesh)
         matvecs += r_mv
         n_sweeps += r_sweeps
         geometry.update(f64_sweeps=r_sweeps, f64_matvecs=r_mv)
@@ -815,9 +897,10 @@ def eigsh_window(
     ``_probes={"census": Z}`` passes the census' ``(8, n)`` probe block in.
     Returns ``(vals, vecs, history)`` as :func:`eigsh_filtered`, with one
     ``History`` over all slices whose ``slices`` attribute lists each
-    slice's ``geometry``."""
-    _refuse_mesh(mesh)
-    op, op_src, wdtype = _work_operators(A, dtype, device, None)
+    slice's ``geometry``.  Under a ``mesh`` (as :func:`eigsh_filtered`'s)
+    the operator is sharded once, the census runs on the mesh and every
+    slice solves on that operator, warm-started with the rank's columns."""
+    op, op_src, wdtype, mesh = _work_operators(A, dtype, device, None, mesh)
     a, b = float(interval[0]), float(interval[1])
     if not a < b:
         raise ValueError(f"empty interval {interval}")
@@ -825,7 +908,8 @@ def eigsh_window(
     wclock = phase_clock()
     if bounds is None:
         with wclock("filter.bounds"):
-            lmin, lmax = spectrum_bounds(op, bounds_dim, generator=generator)
+            lmin, lmax = spectrum_bounds(op, bounds_dim, generator=generator,
+                                         mesh=mesh)
     else:
         lmin, lmax = float(bounds[0]), float(bounds[1])
     a_m, b_m = max(a, lmin), min(b, lmax)
@@ -845,7 +929,7 @@ def eigsh_window(
     grid = np.linspace(a_m, b_m, n_cells + 1)
     with wclock("filter.census"):
         mu = spectral_moments(op, cdeg, bounds=(lmin, lmax),
-                              generator=generator,
+                              generator=generator, mesh=mesh,
                               _Z=(_probes or {}).get("census"))
     mv_count = PROBES * (cdeg + 1)
     cell_counts = np.array([
@@ -853,7 +937,7 @@ def eigsh_window(
             0.0)
         for i in range(n_cells)])
     total = float(cell_counts.sum())
-    n = op.shape[0]
+    n = op.shape[0]         # this rank's rows under a mesh
     if total < 0.5:
         hist = History.from_k(1)
         hist.total = mv_count
@@ -876,8 +960,8 @@ def eigsh_window(
         vals_i, vecs_i, hist_i, (theta_i, X_i) = eigsh_filtered(
             op, None, (lo, hi), degree=degree, tol=tol, max_iters=max_iters,
             bounds=(lmin, lmax), dtype=wdtype, generator=generator,
-            refine=refine, X0=carry, transition=transition, _orig=op_src,
-            _census_mu=mu, _extras=True)
+            refine=refine, mesh=mesh, X0=carry, transition=transition,
+            _orig=op_src, _census_mu=mu, _extras=True)
         # this slice's Ritz rows above its cut lie in the next slice's
         # window: they start it (its own gate verifies them)
         if i + 1 < n_slices:
@@ -901,7 +985,8 @@ def eigsh_window(
     keep = np.ones(len(vals), bool)
     for i in range(1, len(vals)):
         if (vals[i] - vals[i - 1] <= 16 * tol * scale
-                and abs(float(torch.dot(vecs[:, i], vecs[:, i - 1]))) > 0.9):
+                and abs(float(_reduce(torch.dot(vecs[:, i], vecs[:, i - 1]),
+                                      mesh))) > 0.9):
             keep[i] = False
     vals, vecs = vals[keep], vecs[:, _index(np.nonzero(keep)[0], vecs)]
 

@@ -58,7 +58,7 @@ from ..linop import as_operator, cast_operator
 from ..ops import dense_tier
 from ..ops.ortho import block_cgs2
 from ..parallel.mesh import Mesh, local_rows
-from ..parallel.sharded import mesh_operator, start_rows, valid_rows
+from ..parallel.sharded import mesh_operator, operator_mesh, start_rows, valid_rows
 from ..utils import sorting
 from ..utils.checkpoint import (RestartCheckpoint, checkpoint_is_sharded,
                                 load_checkpoint, load_checkpoint_sharded,
@@ -101,7 +101,7 @@ def check_mesh(A, mesh):
     None; raises ``TypeError`` for a ``mesh`` that is not a
     :class:`~..parallel.Mesh`."""
     if mesh is None:
-        return getattr(A, "mesh", None) if getattr(A, "sharded", False) else None
+        return operator_mesh(A)
     if not isinstance(mesh, Mesh):
         raise TypeError(f"mesh= takes an arnoldi_tpu_torch.parallel.Mesh "
                         f"(make_mesh), got {type(mesh).__name__}")

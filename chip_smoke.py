@@ -229,7 +229,33 @@ shift-invert solve finds (``PERF.md`` §2).
     restart 50 (a snapshot every 25: rank 0's metadata and a shard file a
     rank, sizes printed), resumed on 2 ranks (the unbroken 2-rank run's
     matvecs and T within 1e-12) and on one rank in this process (the
-    analytic spectrum).
+    analytic spectrum);
+45. solve 32's configuration through ``eigsh_window(..., mesh=)`` on a
+    one-rank NCCL mesh in this process over the DIA halo: it must count
+    solve 32's matvecs, its values within 1e-12 of solve 32's;
+46. two gloo ranks sharing the card (spawned as in phase 42): (a)
+    ``eigsh_filtered(laplace_3d(64), nev=10, (-11.93, -11.89), tol=1e-8)``
+    in float64 over the DIA halo (``spmv_dia_ext_cols`` at b = s), (b)
+    solve 33's configuration over the ELL halo (``spmv_ell_cols`` on its
+    rectangular column map, float32 then float64), each within 1e-9 of the
+    exact spectrum, printing s, degree, sweeps, the bytes a rank receives
+    an SpMV and each rank's launches, both ranks counting the same
+    matvecs; (c) ``estimate_window_count`` on two ranks against one
+    (relative 1e-10); one sweep of (a) under the profiler: device time by
+    kernel family, the ring exchange's host time, the busy share;
+47. the harness on the card: ``bench_partial_schur laplace2d:300 --which
+    LM`` (the device path, ARPACK beside it), ``stress_test --quick
+    laplace2d:200``, ``compare_arpack mark:100`` and ``scaling_bench`` on 1
+    and 2 gloo ranks over laplace_2d(724)'s DIA halo, each printing what it
+    prints; a stress row whose match is not True is settled against
+    laplace_2d(200)'s exact spectrum (``settle_stress_rows``).
+Between phases 46 and 47 (outside the counted window) ``spmv_dia_ext_cols``
+on laplace_3d(64)'s 2-rank DIA shard is held against its plain version at
+phase 45's and 46(a)'s s and at b = 297 (every column bit for bit against
+the single-column kernel) and timed at b = 297 beside its bound and
+cuSPARSE's SpMM of the window's CSR, and ``spmv_ell_cols`` on
+laplace_3d(48)'s 2-rank ELL shard likewise at 46(b)'s s (timed in
+float32).
 After phase 34 (outside every counted window) ``spmv_dia_cols`` on
 laplace_3d(64) and ``spmv_ell_cols`` on laplace_3d(48) as ELL are held
 against their plain versions at the filter's widths (b = 32, 64, each
@@ -267,7 +293,10 @@ kernels and the complex64 gather forms on the sixth (zeroed before phase
 35, read after phase 39), both forms of ``spmv_dia_ext``, ELL, the BSR
 kernel of solve C's shards and both CGS2 kernels on the sharded path
 (zeroed before phase 41, read after phase 44, the spawned ranks' launches
-added), and each solve must have launched the kernels of its operator in
+added), both forms of ``spmv_dia_ext``, ``spmv_ell_cols`` and both CGS2
+kernels on the sharded filter and the harness (zeroed before phase 45,
+read after phase 47 but for the kernel checks between 46 and 47, the
+spawned ranks' launches added), and each solve must have launched the kernels of its operator in
 its dtype.
 The line before the last is a JSON object with each kernel's route,
 source, launches, error, times, bound and library time (and a record of
@@ -276,7 +305,9 @@ path's, and of ``spmv_dia_cols`` and ``spmv_ell_cols`` at the filter's
 widths, named ``kernel:filter``, whose launches are phases 32-34's in its
 dtype, and of each complex BSR form, named ``kernel:dtype`` too, whose
 launches are phases 35-39's; ``spmv_dia_ext`` and ``spmv_dia_ext_cols``
-count the sharded path's launches, phases 41-44); the last line is
+count the sharded path's launches, phases 41-44; and of the halo shard
+forms at b = s, ``spmv_dia_ext_cols:filter`` and ``spmv_ell_cols:halo``,
+whose launches are phases 45-46's); the last line is
 ``{"ok": true, "device": {...}}``. Needs no network and imports nothing
 of JAX.
 """
@@ -2631,7 +2662,8 @@ def phase_filtered(mats, references, dcounts, refs, device="cuda"):
                               for g_ in hist.slices],
                    "across_slices": across, "phases": hist.phases}
     widths = {"dia": sorted({g_["s"] for g_ in hist.slices}),
-              "geometry": hist.slices[0]}
+              "geometry": hist.slices[0], "values_32": vals,
+              "matvecs_32": hist.total_matvecs}
     del V
 
     g = round(mats["laplace3d48"].shape[0] ** (1 / 3))
@@ -2721,58 +2753,86 @@ def phase_filtered(mats, references, dcounts, refs, device="cuda"):
     return rows, extra, widths
 
 
-def filter_sweep_split(mats, geometry, device="cuda"):
-    """One filtered sweep of phase 32's first slice (its s, degree and
-    window, a random orthonormal block) under the profiler: device time by
-    kernel family (the DIA b-column kernel, torch's elementwise kernels, the
-    gemms, the rest) and the busy share of the profiled wall."""
+def ring_time(mesh):
+    """``(seconds, exchanges)``: the host time the ring exchange has taken
+    on ``mesh`` so far (its clock runs under ``ARNOLDI_PHASES``, which
+    ``main`` sets) and the exchanges started."""
+    rep = mesh.clock.report()
+    return (sum(rep.get(k, {}).get("seconds", 0.0)
+                for k in ("mesh.ring_start", "mesh.ring_wait")),
+            rep.get("mesh.ring_start", {}).get("calls", 0))
+
+
+def filter_sweep_split(op, geometry, mesh=None, warm=True):
+    """One filtered sweep of ``op`` at ``geometry``'s s, degree and window,
+    from a random orthonormal block, under the profiler (after a warm sweep
+    when ``warm``): device time by kernel family (the DIA kernel, copies,
+    torch's elementwise kernels, the gemms, the rest) and the busy share of
+    the profiled wall; under a row ``mesh`` (``op`` this rank's sharded
+    block) also the ring exchange's host time from the mesh's clock.  Rank
+    0 prints."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from arnoldi_tpu_torch import as_operator
     from arnoldi_tpu_torch.ops.ortho import block_cgs2
     from arnoldi_tpu_torch.solvers import filtered
 
-    op = as_operator(mats["laplace3d64"], dtype=torch.float64, device=device)
     (a, b), (lmin, lmax) = geometry["interval"], geometry["bounds"]
     s, degree = geometry["s"], geometry["degree"]
     sin_eff = filtered._edge_sine(a, b, lmin, lmax)
     delta = 2.5 * (lmax - lmin) * sin_eff / degree
     coeffs = filtered.jackson_cheby_coeffs(max(a - delta, lmin), min(b + delta, lmax),
                                            lmin, lmax, degree)
-    gen = torch.Generator(device=device).manual_seed(5)
-    X = torch.randn(s, op.shape[0], generator=gen, device=device, dtype=torch.float64)
-    X = block_cgs2(X, X, 0)[1]
+    rank = 0 if mesh is None else mesh.rank
+    gen = torch.Generator(device=op.device).manual_seed(5 + rank)
+    X = torch.randn(s, op.shape[0], generator=gen, device=op.device, dtype=op.dtype)
+    X = block_cgs2(X, X, 0, mesh=mesh)[1]
 
     def sweep():
-        return filtered._filter_rr_step(op, X, coeffs, lmin, lmax)
+        return filtered._filter_rr_step(op, X, coeffs, lmin, lmax, mesh=mesh)
 
-    sweep()
+    if warm:
+        sweep()
     sync()
+    if mesh is not None:
+        mesh.barrier()
+        ring0 = ring_time(mesh)
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sweep()
         sync()
     wall = time.perf_counter() - t0
+    dia = "spmv_dia_cols" if mesh is None else "spmv_dia_ext_cols"
     family = {}
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() != DeviceType.CUDA:
             continue
         name = ev.name().lower()
-        key = ("spmv_dia_cols" if "spmv_dia" in name else
+        key = (dia if "spmv_dia" in name else
+               "memcpy" if "memcpy" in name else
                "elementwise" if "elementwise" in name or "vectorized" in name else
                "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass", "sm90")) else
                "other")
         family[key] = family.get(key, 0.0) + ev.duration_ns() / 1e6
     total = sum(family.values())
-    print(f"  one sweep at s={s}, degree={degree} (n={op.shape[0]}) under the "
-          f"profiler: wall {wall:.4f} s, device {total:.3f} ms (busy "
-          f"{100 * total / 1e3 / wall:.1f} %); by family (ms): "
-          + "; ".join(f"{k} {v:.3f} ({100 * v / total:.1f} %)"
-                      for k, v in sorted(family.items(), key=lambda kv: -kv[1])))
-    return {"s": s, "degree": degree, "profiled_wall_s": wall,
-            "device_ms": total, "busy": total / 1e3 / wall, "by_family_ms": family}
+    out = {"s": s, "degree": degree, "profiled_wall_s": wall,
+           "device_ms": total, "busy": total / 1e3 / wall, "by_family_ms": family}
+    where = f"n={op.shape[0]}"
+    if mesh is not None:
+        ring1 = ring_time(mesh)
+        out.update(exchange_host_s=ring1[0] - ring0[0],
+                   exchanges=ring1[1] - ring0[1])
+        where = (f"rank 0 of {mesh.size}, {op.shape[0]} rows; the ring exchange "
+                 f"{out['exchange_host_s']:.4f} s of host time over "
+                 f"{out['exchanges']} exchanges")
+    if rank == 0:
+        print(f"  one sweep at s={s}, degree={degree} ({where}) under the "
+              f"profiler: wall {wall:.4f} s, device {total:.3f} ms (busy "
+              f"{100 * total / 1e3 / wall:.1f} %); by family (ms): "
+              + "; ".join(f"{k} {v:.3f} ({100 * v / total:.1f} %)"
+                          for k, v in sorted(family.items(), key=lambda kv: -kv[1])))
+    return out
 
 
 FILTER_TAIL = 8 * 37 + 3     # an odd tail: 37 passes of 8 columns and one of 3
@@ -3664,9 +3724,10 @@ def mesh_rank_main(rank, size, port, refs, queue):
     dist.destroy_process_group()
 
 
-def run_mesh_ranks(refs):
-    """Spawn the ranks of phases 42-44 and collect their results; fail if
-    a rank fails or outlives ``PARALLEL_TIMEOUT_S``."""
+def spawn_ranks(target, extra, label):
+    """Spawn ``MESH_RANKS`` processes running ``target(rank, size, port,
+    *extra, queue)`` and collect their ``(rank, results)``; fail if a rank
+    fails or outlives ``PARALLEL_TIMEOUT_S`` (``label`` names the phases)."""
     import multiprocessing
 
     import torch
@@ -3675,8 +3736,8 @@ def run_mesh_ranks(refs):
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=mesh_rank_main,
-                         args=(rank, MESH_RANKS, port, refs, queue))
+    procs = [ctx.Process(target=target,
+                         args=(rank, MESH_RANKS, port, *extra, queue))
              for rank in range(MESH_RANKS)]
     for p in procs:
         p.start()
@@ -3689,9 +3750,9 @@ def run_mesh_ranks(refs):
             except Exception:       # queue.Empty: look at the ranks
                 dead = [p for p in procs if p.exitcode not in (None, 0)]
                 if dead:
-                    fail(f"a rank of phases 42-44 exited {dead[0].exitcode}")
+                    fail(f"a rank of {label} exited {dead[0].exitcode}")
                 if time.perf_counter() - t0 > PARALLEL_TIMEOUT_S:
-                    fail(f"phases 42-44 outlived {PARALLEL_TIMEOUT_S} s")
+                    fail(f"{label} outlived {PARALLEL_TIMEOUT_S} s")
         for p in procs:
             p.join(timeout=60)
     finally:
@@ -3725,7 +3786,7 @@ def phase_parallel(mats, counts, refs, references=None):
     extra["A_nccl1"] = more
 
     t0 = time.perf_counter()
-    ranks = run_mesh_ranks(refs)
+    ranks = spawn_ranks(mesh_rank_main, (refs,), "phases 42-44")
     print(f"  phases 42-44 in {MESH_RANKS} spawned ranks: {time.perf_counter() - t0:.2f} s "
           f"(ranks' own walls {[round(r['wall_s'], 2) for r in ranks]})")
     r0 = ranks[0]["solves"]
@@ -3773,6 +3834,436 @@ def phase_parallel(mats, counts, refs, references=None):
             summed[name] = summed.get(name, 0) + v
     print(f"  launches in the spawned ranks (summed): {summed}")
     return rows, extra, summed
+
+
+# The sharded filter and the harness (phases 45-47): the filtered drivers'
+# mesh= over the DIA and ELL halos at b = s, and the harness's CLIs.
+
+#: The kernels phases 45-47 must launch (this process and the ranks).
+FILTER_MESH_KERNELS = ("spmv_dia_ext_cols", "spmv_ell_cols", "spmv_dia_ext",
+                       "masked_project", "project_update_norm")
+#: The bytes a product moves at b = 297 on laplace_3d(64)'s 2-rank DIA
+#: shard is the bound of the record "spmv_dia_ext_cols:filter".
+FILTER_SHARD_B = 297
+
+
+def nearest_check(label, vals, exact, window, k, A, V, scale):
+    """Hold a nev-mode filtered solve: its values the k exact values
+    nearest the window's center by distance (a tie is either value),
+    within 1e-9, and ``||Av - lambda v|| / scale <= 1e-7``.  Returns the
+    distance error."""
+    import numpy as np
+
+    want = nearest(exact, window, k)
+    c = 0.5 * sum(window)
+    err = float(np.abs(np.sort(np.abs(vals - c)) - np.sort(np.abs(want - c))).max())
+    off = float(np.abs(vals[:, None] - exact[None, :]).min(axis=1).max())
+    Vh = host_array(V)
+    res = float((np.linalg.norm(A @ Vh - Vh * vals[None, :], axis=0)).max() / scale)
+    print(f"  {label}: {len(vals)} values; distances to the center against the "
+          f"{k} exact nearest: error {err:.3e}; each value to its exact one "
+          f"{off:.3e} (limit 1e-9); residual / {scale} {res:.3e} (limit 1e-7)")
+    if not (len(vals) == k and err <= 1e-9 and off <= 1e-9 and res <= 1e-7):
+        fail(f"{label}: values or residual out of bounds")
+    return max(err, off)
+
+
+def filter_mesh_rank_main(rank, size, port, queue):
+    """One rank of phase 46 (a spawned process, gloo over localhost,
+    computing on the card the parent uses): (a) nev 10 of laplace_3d(64)
+    in solve 32's window over the DIA halo and one sweep of it under the
+    profiler, (b) solve 33's configuration over the ELL halo, (c) a KPM
+    window count.  Puts ``(rank, results)`` on ``queue``; rank 0 checks the
+    values and prints."""
+    import numpy as np
+    import torch
+
+    from arnoldi_tpu_torch import as_operator, eigsh_filtered, matrices
+    from arnoldi_tpu_torch.ops import kernels
+    from arnoldi_tpu_torch.ops.kernels import _build
+    from arnoldi_tpu_torch.parallel import gather_rows, halo_matvec_closure, make_mesh
+    from arnoldi_tpu_torch.parallel.multihost import initialize
+    from arnoldi_tpu_torch.solvers.filtered import estimate_window_count
+
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    torch.cuda.set_device(0)
+    initialize(f"127.0.0.1:{port}", size, rank, backend="gloo")
+    mesh = make_mesh(device="cuda")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    _build.library()                        # the parent's build
+    kernels.reset_launch_counts()
+    out = {"runs": {}}
+    t_all = time.perf_counter()
+
+    def run(key, label, op, fn):
+        before = kernels.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        ring0 = ring_time(mesh)
+        t0 = time.perf_counter()
+        vals, V, hist = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        ring = [b - a for a, b in zip(ring0, ring_time(mesh))]
+        geo = hist.geometry
+        launches = {k: v - before[k] for k, v in kernels.launch_counts().items()
+                    if v != before[k]}
+        nbytes = op.exchange_bytes(geo["s"])
+        say(f"  {label} ({size} ranks): wall {wall:.4f} s, matvecs "
+            f"{hist.total_matvecs}, s {geo['s']}, degree {geo['degree']}, sweeps "
+            f"{geo['sweeps']} (float64 continuation {geo['f64_sweeps']} sweeps, "
+            f"{geo['f64_matvecs']} matvecs), {nbytes} bytes a rank receives an "
+            f"SpMV at b = s, the ring exchange {ring[0]:.4f} s of host time over "
+            f"{ring[1]} exchanges, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+            f"GiB; phases " + "; ".join(f"{k} {v['seconds']:.3f} s x{v['calls']}"
+                                        for k, v in sorted(hist.phases.items())))
+        out["runs"][key] = dict(matvecs=hist.total_matvecs, s=geo["s"],
+                                degree=geo["degree"], sweeps=geo["sweeps"],
+                                f64_matvecs=geo["f64_matvecs"], wall_s=wall,
+                                bytes_per_spmv=nbytes, exchange_host_s=ring[0],
+                                exchanges=ring[1], launches=launches,
+                                geometry=geo, phases=hist.phases)
+        return vals, gather_rows(V, mesh), hist
+
+    say("phase 46: two ranks on the card over gloo: the filtered drivers over "
+        "the DIA and ELL halos")
+    A64 = matrices.laplace_3d(64)
+    H = halo_matvec_closure(as_operator(A64, dtype=torch.float64, device="cuda"),
+                            mesh)
+    say(f"  DIA halo: {H.halo} rows, kernel {H.kernel}, {H.n_local} rows a rank")
+    vals, V, hist = run("46a", "(a) eigsh_filtered(laplace_3d(64), nev=10, "
+                        f"{FILTER_WINDOW_64}, tol=1e-8), float64, DIA halo", H,
+                        lambda: eigsh_filtered(
+                            H, 10, FILTER_WINDOW_64, tol=1e-8,
+                            generator=torch.Generator().manual_seed(0)))
+    if rank == 0:
+        lmin, lmax = hist.geometry["bounds"]
+        nearest_check("(a)", vals, np.sort(matrices.laplace_3d_eigen(64)),
+                      FILTER_WINDOW_64, 10, A64, V, max(abs(lmin), abs(lmax)))
+    del V
+    # no warm-up sweep: run (a) has just run this one's shapes
+    out["sweep"] = filter_sweep_split(H, hist.geometry, mesh, warm=False)
+
+    A48 = matrices.laplace_3d(48)
+    H48 = halo_matvec_closure(as_operator(A48, format="ell", device="cuda"), mesh)
+    say(f"  ELL halo: {H48.halo} rows, kernel {H48.kernel}, window "
+        f"{H48.local.shape[1]} columns")
+    vals, V, hist = run("46b", "(b) eigsh_filtered(laplace_3d(48) as ELL, nev=10, "
+                        f"{FILTER_WINDOW_48}, tol=1e-8), float32 then float64, "
+                        "ELL halo", H48,
+                        lambda: eigsh_filtered(
+                            H48, 10, FILTER_WINDOW_48, tol=1e-8, dtype=torch.float32,
+                            generator=torch.Generator().manual_seed(1)))
+    if rank == 0:
+        if V.dtype != torch.float64 or hist.geometry["f64_matvecs"] == 0:
+            fail("(b) did not continue in float64")
+        lmin, lmax = hist.geometry["bounds"]
+        nearest_check("(b)", vals, np.sort(matrices.laplace_3d_eigen(48)),
+                      FILTER_WINDOW_48, 10, A48, V, max(abs(lmin), abs(lmax)))
+    del V, H48
+
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    count = estimate_window_count(H, FILTER_WINDOW_64,
+                                  generator=torch.Generator().manual_seed(5))
+    out["count"] = count
+    out["count_wall_s"] = time.perf_counter() - t0
+    out["count_launches"] = {k: v - before[k] for k, v in
+                             kernels.launch_counts().items() if v != before[k]}
+    out["launches"] = kernels.launch_counts()
+    out["wall_s"] = time.perf_counter() - t_all
+    mesh.barrier()
+    queue.put((rank, out))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def phase_filtered_mesh(mats, refs):
+    """Phases 45 and 46 (the caller zeroes the counts before): solve 32's
+    configuration through ``eigsh_window(mesh=)`` on a one-rank NCCL mesh
+    in this process over the DIA halo (it must count solve 32's matvecs,
+    its values within 1e-12 of solve 32's: ``refs["values_32"]``,
+    ``refs["matvecs_32"]``), then phase 46 in two spawned ranks.  Returns
+    ``(rows, extra, the ranks' launches summed, widths)``: ``widths`` the
+    s of phase 45's slices and of runs 46(a) and 46(b)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from arnoldi_tpu_torch import as_operator, eigsh_window
+    from arnoldi_tpu_torch.parallel import halo_matvec_closure, make_mesh
+    from arnoldi_tpu_torch.solvers.filtered import estimate_window_count
+
+    rows, extra = [], {}
+    A = mats["laplace3d64"]
+    print(f"phase 45: eigsh_window(laplace_3d(64), {FILTER_WINDOW_64}, tol=1e-8, "
+          "mesh=) on a one-rank NCCL mesh in this process, over the DIA halo")
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        H = halo_matvec_closure(as_operator(A, dtype=torch.float64, device="cuda"),
+                                mesh)
+        print(f"  mesh: {mesh.size} rank, backend {mesh.backend}; HaloOperator: "
+              f"halo {H.halo} rows, kernel {H.kernel}")
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        vals, V, hist = eigsh_window(H, FILTER_WINDOW_64, tol=1e-8,
+                                     generator=torch.Generator().manual_seed(0))
+        sync()
+        wall = time.perf_counter() - t0
+        print(f"  wall {wall:.4f} s, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print_filter_history(hist)
+        want = refs["values_32"]
+        diff = (float(np.abs(vals - want).max()) if len(vals) == len(want)
+                else float("inf"))
+        print(f"  against solve 32: matvecs {hist.total_matvecs} (solve 32: "
+              f"{refs['matvecs_32']}), {len(vals)} values (solve 32: {len(want)}), "
+              f"max |lambda - lambda_32| {diff:.3e} (limit 1e-12; bit-equal: "
+              f"{diff == 0.0})")
+        if not (hist.total_matvecs == refs["matvecs_32"] and diff <= 1e-12):
+            fail("phase 45 differs from solve 32")
+        rows.append(("45", hist, wall))
+        extra["45"] = {"max_abs_d_lambda": diff, "backend": "nccl",
+                       "slices": [{k: g[k] for k in ("interval", "s", "degree",
+                                                     "sweeps")}
+                                  for g in hist.slices], "phases": hist.phases}
+        widths = {"45": sorted({g["s"] for g in hist.slices})}
+        del V, H
+    finally:
+        dist.destroy_process_group()
+    one = estimate_window_count(as_operator(A, dtype=torch.float64, device="cuda"),
+                                FILTER_WINDOW_64,
+                                generator=torch.Generator().manual_seed(5))
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(filter_mesh_rank_main, (), "phase 46")
+    print(f"  phase 46 in {MESH_RANKS} spawned ranks: {time.perf_counter() - t0:.2f} s "
+          f"(ranks' own walls {[round(r['wall_s'], 2) for r in ranks]})")
+    for key in ("46a", "46b"):
+        per_rank = [r["runs"][key]["matvecs"] for r in ranks]
+        if len(set(per_rank)) != 1:
+            fail(f"{key}: the ranks counted different matvecs {per_rank}")
+        r0 = ranks[0]["runs"][key]
+        print(f"  {key}: matvecs {per_rank[0]} on every rank, s {r0['s']}, degree "
+              f"{r0['degree']}, sweeps {r0['sweeps']}, {r0['bytes_per_spmv']} bytes "
+              f"a rank receives an SpMV; launches by rank "
+              f"{[r['runs'][key]['launches'] for r in ranks]}")
+        rows.append((key, _Hist(r0["matvecs"], r0["sweeps"]), r0["wall_s"]))
+        extra[key] = {k: r0[k] for k in ("s", "degree", "sweeps", "f64_matvecs",
+                                         "bytes_per_spmv", "exchange_host_s",
+                                         "exchanges", "phases")}
+        extra[key].update(ranks=MESH_RANKS,
+                          launches_by_rank=[r["runs"][key]["launches"] for r in ranks])
+        widths[key] = r0["s"]
+    two = [r["count"] for r in ranks]
+    rel = abs(two[0] - one) / abs(one)
+    print(f"  (c) estimate_window_count({FILTER_WINDOW_64}): {two} on 2 ranks, "
+          f"{one} on one: relative difference {rel:.3e} (limit 1e-10); "
+          f"{ranks[0]['count_wall_s']:.3f} s, launches by rank "
+          f"{[r['count_launches'] for r in ranks]}")
+    if not (two[0] == two[1] and rel <= 1e-10):
+        fail("(c) the 2-rank KPM count disagrees")
+    extra["46c"] = {"count_2": two[0], "count_1": one, "rel": rel}
+    extra["46a"]["sweep"] = ranks[0]["sweep"]
+    summed = {}
+    for r in ranks:
+        for name, v in r["launches"].items():
+            summed[name] = summed.get(name, 0) + v
+    print(f"  launches in the spawned ranks (summed): {summed}")
+    return rows, extra, summed, widths
+
+
+def phase_filter_shard_kernels(mats, widths, gen, device="cuda"):
+    """Before phase 47 (outside the counted windows): ``spmv_dia_ext_cols``
+    on laplace_3d(64)'s 2-rank DIA shard (131,072 rows against a 139,264
+    window, h = 4096) at phase 45's and 46(a)'s s and at b = 297 against
+    its plain version, every column bit for bit against the single-column
+    kernel, timed at b = 297 (phase 45's widest slice: record
+    ``spmv_dia_ext_cols:filter``) and at 46(a)'s s (``:filter_46a``):
+    events, cold device time, the bound, cuSPARSE's SpMM of the window's
+    CSR; ``spmv_ell_cols`` on laplace_3d(48)'s 2-rank ELL shard (the
+    rectangular column map of the halo) at 46(b)'s s in float32 and float64
+    against its plain version, timed at that s in float32.  Returns ``{record name: KernelRecord}``."""
+    import torch
+
+    from arnoldi_tpu_torch.linop import BandedOperator, EllOperator, cast_operator
+    from arnoldi_tpu_torch.ops.kernels import spmv_banded, spmv_ell
+    from arnoldi_tpu_torch.parallel import Mesh, halo_matvec_closure
+
+    dev = torch.device(device)
+    recs = {}
+    A = mats["laplace3d64"]
+    rank = 1
+    local = halo_matvec_closure(BandedOperator.from_scipy(A, device=dev),
+                                Mesh(None, rank, MESH_RANKS, dev)).local
+    h, n_local = local.x_base, local.bands.shape[1]
+    timed = {FILTER_SHARD_B: "spmv_dia_ext_cols:filter"}
+    timed.setdefault(widths["46a"], "spmv_dia_ext_cols:filter_46a")
+    for nb in sorted({*widths["45"], widths["46a"], FILTER_SHARD_B}):
+        r = KernelRecord()
+        if nb in timed:
+            recs[timed[nb]] = r
+            r.b = nb
+        x = torch.randn(nb, n_local + 2 * h, generator=gen, device=dev,
+                        dtype=torch.float64)
+        got = spmv_banded.banded_matmat_ext(local.bands, x, local.offsets, x_base=h)
+        r.check(f"DIA shard (7, {n_local}) x {n_local + 2 * h} b={nb}",
+                torch.float64, got,
+                spmv_banded.banded_matvec_ext_plain(local.bands, x, local.offsets,
+                                                    x_base=h))
+        single = torch.stack([spmv_banded.banded_matvec_ext(
+            local.bands, x[j], local.offsets, x_base=h) for j in range(nb)])
+        if not torch.equal(got, single):
+            fail(f"spmv_dia_ext_cols b={nb}: a column differs from the "
+                 "single-column kernel")
+        del got, single
+        if nb in timed:
+            row0 = rank * n_local
+            time_shard_form(r, spmv_banded.banded_matmat_ext, local, x, nb,
+                            shard_window_csr(A, row0, row0 + n_local, h), dev)
+        del x
+    del local
+
+    A = mats["laplace3d48"]
+    halo = halo_matvec_closure(EllOperator.from_scipy(A, device=dev),
+                               Mesh(None, rank, MESH_RANKS, dev))
+    nb = widths["46b"]
+    r = recs["spmv_ell_cols:halo"] = KernelRecord(torch.float32)
+    r.b = nb
+    for dtype in (torch.float64, torch.float32):
+        loc = cast_operator(halo.local, dtype)
+        n_rows, width = loc.shape
+        X = torch.randn(nb, width, generator=gen, device=dev, dtype=dtype)
+        r.check(f"ELL shard ({n_rows}, L={loc.data.shape[1]}) x {width} b={nb}",
+                dtype, loc.matmat_rows(X),
+                spmv_ell.ell_matvec_plain(loc.data, loc.cols, X))
+        if dtype == torch.float32:
+            def kernel(data=loc.data, cols=loc.cols, X=X):
+                return spmv_ell.ell_matmat(data, cols, X)
+
+            def plain():
+                return spmv_ell.ell_matvec_plain(loc.data, loc.cols, X)
+
+            r.time(kernel, plain, cold(kernel, loc.data, loc.cols, X))
+            r.set_bound(ell_bytes(loc, nb), 2 * loc.nnz * nb)
+            row0 = rank * n_rows
+            W = csr_tensor(shard_window_csr(A, row0, row0 + n_rows, halo.halo),
+                           dtype, dev)
+            XT = X.T.contiguous()
+
+            def library(W=W, XT=XT):
+                return W @ XT
+
+            r.time_library(f"A_window_csr @ X (cuSPARSE SpMM, b={nb})", library,
+                           plain().T, cold(library, W, XT))
+            del W, XT
+        del X, loc
+    sync()
+    for name, rec in recs.items():
+        print_time(name, rec)
+    return recs
+
+
+def phase_harness():
+    """Phase 47: the harness's CLIs on the card, each printing what it
+    prints: ``bench_partial_schur laplace2d:300 --which LM`` (the device
+    path, ARPACK beside it), ``stress_test --quick laplace2d:200``,
+    ``compare_arpack mark:100`` (the host tier) and ``scaling_bench`` on 1
+    and 2 gloo ranks over laplace_2d(724)'s DIA halo; the stress rows whose
+    match is not True are settled (:func:`settle_stress_rows`).  Returns
+    ``({label: summary}, the scaling ranks' launches summed)``."""
+    import csv
+
+    from arnoldi_tpu_torch.harness import (bench_partial_schur, compare_arpack,
+                                           scaling_bench, stress_test)
+
+    extra = {}
+    for label, run in (
+            ("bench_partial_schur", lambda: bench_partial_schur.main(
+                ["laplace2d:300", "--which", "LM"])),
+            ("compare_arpack", lambda: compare_arpack.main(["mark:100"]))):
+        print(f"  $ python -m arnoldi_tpu_torch.harness.{label} ...")
+        t0 = time.perf_counter()
+        if run() != 0:
+            fail(f"{label} exited nonzero")
+        extra[label] = {"wall_s": time.perf_counter() - t0}
+    out = os.path.join(CHECKPOINT_DIR, "stress.csv")
+    os.makedirs(CHECKPOINT_DIR, exist_ok=True)
+    print("  $ python -m arnoldi_tpu_torch.harness.stress_test laplace2d:200 --quick")
+    t0 = time.perf_counter()
+    if stress_test.main(["laplace2d:200", "--quick", "-o", out]) != 0:
+        fail("stress_test exited nonzero")
+    with open(out) as f:
+        rows = list(csv.reader(f))
+    os.remove(out)
+    for row in rows:
+        print("    " + ",".join(row))
+    if any(r[8] == "-1" for r in rows[1:]):
+        fail("stress_test: a method failed")
+    extra["stress_test"] = {"wall_s": time.perf_counter() - t0, "rows": rows[1:],
+                            "settled": settle_stress_rows(rows)}
+    print("  $ python -m arnoldi_tpu_torch.harness.scaling_bench --grid 724 "
+          "--ranks 1,2 (float64; two ranks on the card run gloo)")
+    t0 = time.perf_counter()
+    scaling = scaling_bench.run_scaling(n_grid=724, rank_counts=(1, MESH_RANKS),
+                                        dtype="float64", device="cuda")
+    print(json.dumps(scaling, indent=2))
+    extra["scaling_bench"] = {"wall_s": time.perf_counter() - t0, "rows": scaling}
+    summed = {}
+    for row in scaling:
+        for name, v in row["launches"].items():
+            summed[name] = summed.get(name, 0) + v
+    return extra, summed
+
+
+def settle_stress_rows(rows):
+    """Settle each grid row of ``stress_test --quick laplace2d:200`` whose
+    match is not True against laplace_2d(200)'s exact spectrum: the row's
+    methods solve again from the row's start vector (seed 0) and each must
+    settle as "wanted" or "copies missed" (:func:`settle_with_spectrum`);
+    fails otherwise, and for a row whose match is neither True nor False.
+    Returns ``{"which nev ncv": {method: settlement}}``."""
+    import numpy as np
+
+    from arnoldi_tpu_torch import matrices
+    from arnoldi_tpu_torch.harness import matrix_from_spec, stress_test
+    from arnoldi_tpu_torch.harness.suite import settle_with_spectrum
+
+    header, body = rows[0], rows[1:]
+    col = {name: i for i, name in enumerate(header)}
+    settled, A, exact = {}, None, None
+    for r in body:
+        if r[col["match"]] == "True":
+            continue
+        if r[col["match"]] != "False":
+            fail(f"stress_test: row {r} has match {r[col['match']]}")
+        nev, ncv, which = int(r[col["nev"]]), int(r[col["ncv"]]), r[col["which"]]
+        label = f"{which} nev {nev} ncv {ncv}"
+        if label in settled:
+            continue
+        if A is None:
+            A = matrix_from_spec("laplace2d:200")
+            exact = matrices.laplace_2d_eigen(200)
+        params = next(p for p in stress_test.QUICK_PARAMETERS
+                      if (p.nev, p.ncv, p.which) == (nev, ncv, which))
+        settled[label] = {}
+        for method in sorted({b[col["method"]] for b in body}):
+            vals = np.sort(np.real(np.asarray(
+                stress_test.run_one(method, A, params, 0, "cuda")[0])))[::-1]
+            how = settle_with_spectrum(vals, exact, which)
+            settled[label][method] = how
+            print(f"    {label}: {method} against laplace_2d(200)'s exact "
+                  f"spectrum: {how}; values {vals.tolist()}")
+            if how is None:
+                fail(f"stress_test {label}: {method}'s values are not the "
+                     "wanted eigenvalues, with or without their copies")
+    return settled
 
 
 class _Hist:
@@ -3857,7 +4348,7 @@ def main():
 
 
 def run_phases(mats, references, smi):
-    """Phases 1-44 and the report (``main`` builds the matrices and starts
+    """Phases 1-47 and the report (``main`` builds the matrices and starts
     the complex solves' ARPACK references)."""
     import torch
 
@@ -4067,7 +4558,9 @@ def run_phases(mats, references, smi):
     print("phase 1 at the filter's widths (after phase 34, outside the counted "
           "windows)")
     frec = phase_filter_kernels(mats, widths, torch.Generator(device="cuda").manual_seed(4))
-    f_extra["32"]["sweep"] = filter_sweep_split(mats, widths["geometry"])
+    f_extra["32"]["sweep"] = filter_sweep_split(
+        as_operator(mats["laplace3d64"], dtype=torch.float64, device="cuda"),
+        widths["geometry"])
 
     # The complex BSR path and checkpoint/resume, counted on their own.
     kernels.reset_launch_counts()
@@ -4105,6 +4598,34 @@ def run_phases(mats, references, smi):
           f"ranks): {p_counts}")
     print(f"phases 41-44 wall {p_wall:.2f} s")
 
+    # The sharded filter (phases 45-46) and the harness (phase 47), counted
+    # on their own: this process and the ranks; the kernel checks between
+    # phases 46 and 47 fall outside the count.
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fm_rows, fm_extra, fm_rank_counts, fm_widths = phase_filtered_mesh(mats, widths)
+    fm_counts = {name: v + fm_rank_counts.get(name, 0)
+                 for name, v in counts().items()}
+    print(f"phases 45-46 wall {time.perf_counter() - t0:.2f} s")
+    print("the DIA and ELL halo shard forms at b = s against their plain versions "
+          "(not counted)")
+    t0 = time.perf_counter()
+    fm_rec = phase_filter_shard_kernels(mats, fm_widths,
+                                        torch.Generator(device="cuda").manual_seed(7))
+    print(f"  wall {time.perf_counter() - t0:.2f} s")
+    print("phase 47: the harness on the card")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    h_extra, h_rank_counts = phase_harness()
+    print(f"phase 47 wall {time.perf_counter() - t0:.2f} s")
+    h_counts = {name: v + h_rank_counts.get(name, 0) for name, v in counts().items()}
+    fm_all = {name: fm_counts[name] + h_counts[name] for name in fm_counts}
+    idle = [k for k in FILTER_MESH_KERNELS if fm_all[k] == 0]
+    if idle:
+        fail(f"kernels of phases 45-47 never launched there: {idle}")
+    print(f"launches on the sharded filter and the harness (phases 45-47, this "
+          f"process and the ranks): {fm_all}")
+
     summary = {label: {"matvecs": h.total_matvecs, "restarts": len(h.residual_trace),
                        "wall_s": w, "ms_per_matvec": 1e3 * w / h.total_matvecs}
                for label, h, w in (("A", hist_a, wall_a), ("B", hist_b, wall_b),
@@ -4112,9 +4633,10 @@ def run_phases(mats, references, smi):
                                    ("E", hist_e, wall_e), ("F", hist_f, wall_f),
                                    ("G", hist_g, wall_g), ("H", hist_h, wall_h),
                                    *hermitian, *refined, *complex_rows,
-                                   *si_rows, *f_rows, *b_rows, *p_rows)}
-    for label, fields in {**extra, **complex_extra, **si_extra,
-                          **f_extra, **b_extra, **p_extra}.items():
+                                   *si_rows, *f_rows, *b_rows, *p_rows,
+                                   *fm_rows)}
+    for label, fields in {**extra, **complex_extra, **si_extra, **f_extra,
+                          **b_extra, **p_extra, **fm_extra, **h_extra}.items():
         summary.setdefault(label, {}).update(fields)
     print(f"solves: {json.dumps(summary)}")
     print(f"card: {smi}")
@@ -4140,7 +4662,8 @@ def run_phases(mats, references, smi):
          "dtypes_phases_32_34": f_dtypes[name],
          "launches_phases_35_39": b_counts[name],
          "dtypes_phases_35_39": b_dtypes[name],
-         "launches_phases_41_44": p_counts[name]}
+         "launches_phases_41_44": p_counts[name],
+         "launches_phases_45_47": fm_all[name]}
         for name, (_, source, replaces) in kernels.KERNELS.items()]}
     # The complex forms, each with its own record: "launches" counts the
     # complex path's launches in its dtype.
@@ -4186,6 +4709,18 @@ def run_phases(mats, references, smi):
          "dev_ms": r.dev_ms, "library_dev_ms": r.library_dev_ms, "library": r.library,
          "enqueue_us": r.enqueue_us, "library_enqueue_us": r.library_enqueue_us}
         for name, r in frec.items() for base in (name.split(":")[0],)]
+    # The halo shard forms at b = s (phases 45-46): "launches" counts phases
+    # 45-46's (this process and the ranks).
+    report["kernels"] += [
+        {"name": name, "route": "cuda", "source": kernels.KERNELS[base][1],
+         "replaces": kernels.KERNELS[base][2], "dtype": str(r.dtype).removeprefix("torch."),
+         "launches": fm_counts[base], "max_abs_err": r.max_abs_err, "ms": r.ms,
+         "plain_ms": r.plain_ms, "bound_ms": r.bound_ms, "bound_by": r.bound_by,
+         "library_ms": r.library_ms, "dev_ms": r.dev_ms,
+         "library_dev_ms": r.library_dev_ms, "library": r.library,
+         "enqueue_us": r.enqueue_us, "library_enqueue_us": r.library_enqueue_us,
+         "b": r.b}
+        for name, r in fm_rec.items() for base in (name.split(":")[0],)]
     print(json.dumps(report))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -347,11 +347,18 @@ def test_bad_arguments_raise():
 
 
 def test_mesh_is_not_ported():
+    # mesh= is ported (tests/test_torch_filtered_mesh.py); what is not a
+    # Mesh is refused by every filtered entry point, as partial_schur does
     L = laplace(50).tocsr()
     for call in (lambda: eigsh_filtered(L, 2, (-2.2, -1.8), device="cpu",
                                         mesh=object()),
                  lambda: pf.eigsh_window(L, (-2.2, -1.8), device="cpu",
                                          mesh=object()),
-                 lambda: pf.spectrum_bounds(L, device="cpu", mesh=object())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+                 lambda: pf.spectrum_bounds(L, device="cpu", mesh=object()),
+                 lambda: pf.estimate_window_count(L, (-2.2, -1.8), device="cpu",
+                                                  mesh=object()),
+                 lambda: pf.spectral_moments(as_operator(L, device="cpu"), 20,
+                                             bounds=(-4.1, 0.1),
+                                             mesh=object())):
+        with pytest.raises(TypeError, match="mesh= takes an"):
             call()

@@ -131,3 +131,36 @@ def test_imports_and_solves_without_jax():
              if Path(lib).name in ("libdense_tier.so", "libhost_engine.so")}
     assert built == {"libdense_tier.so": REPO / "build" / "arnoldi_tpu_torch",
                      "libhost_engine.so": REPO / "build" / "arnoldi_tpu_torch"}
+
+
+_HARNESS_SCRIPT = """
+import importlib, importlib.util, json, sys
+from pathlib import Path
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["arnoldi_tpu"] = None  # and so does the JAX package
+names = ["suite", "bench_partial_schur", "compare_arpack", "stress_test",
+         "scaling_bench", "plot_stress", "slepc", "compare_slepc"]
+for name in names:
+    importlib.import_module("arnoldi_tpu_torch.harness." + name)
+import arnoldi_tpu_torch.harness
+examples = sorted(Path("examples/torch").glob("*.py"))
+for path in examples:             # import, not run: main() is guarded
+    spec = importlib.util.spec_from_file_location("example_" + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(json.dumps({
+    "examples": len(examples),
+    "modules": sorted(m for m, mod in sys.modules.items() if mod is not None
+                      and (m == "jax" or m.startswith(("jax.", "jaxlib"))
+                           or m == "arnoldi_tpu"
+                           or m.startswith("arnoldi_tpu.")))}))
+"""
+
+
+def test_harness_and_examples_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", _HARNESS_SCRIPT], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["examples"] == 6
+    assert out["modules"] == []

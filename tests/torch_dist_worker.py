@@ -215,7 +215,83 @@ def scenario_checkpoint_elastic(mesh, out):
             "Q": gather_rows(Q, mesh).numpy()}
 
 
+#: The filtered solves of ``test_torch_filtered_mesh.py`` (JAX's
+#: ``TestFilteredMesh`` inputs): name -> (nev, window, tol, dtype).
+FILTER_CASES = {
+    "f64": (4, (-2.2, -1.8), 1e-10, np.float64),
+    "f32": (3, (-2.2, -1.8), 1e-9, np.float32),
+    "window": (None, (-2.15, -1.95), 1e-10, np.float64),
+}
+FILTER_ELL_WINDOW = (-6.1, -5.9)       # laplace_3d(8) as ELL
+
+
+def _filtered(op, case, inputs, mesh):
+    """One of :data:`FILTER_CASES` on ``op`` from the JAX package's bounds,
+    start block and probes (``inputs``, saved by the test)."""
+    from arnoldi_tpu_torch import eigsh_filtered, eigsh_window
+
+    nev, window, tol, dtype = FILTER_CASES[case]
+    bounds = tuple(inputs[f"{case}_bounds"])
+    if case == "window":
+        return eigsh_window(op, window, tol=tol, dtype=dtype, bounds=bounds,
+                            mesh=mesh, _probes={"census": inputs["window_census"]})
+    return eigsh_filtered(op, nev, window, tol=tol, dtype=dtype, bounds=bounds,
+                          X0=inputs[f"{case}_X0"], mesh=mesh,
+                          _probes={"sizing": inputs[f"{case}_sizing"]})
+
+
+def scenario_filtered_mesh(mesh, out):
+    """The filtered drivers on laplace(256) over the DIA halo and the
+    all-gather (:data:`FILTER_CASES`), laplace_3d(8) as ELL over the ELL
+    halo (all pairs of :data:`FILTER_ELL_WINDOW`), and the KPM count of a
+    window; each result's values, gathered vectors and counts."""
+    from arnoldi_tpu_torch.matrices import laplace_3d
+    from arnoldi_tpu_torch.solvers.filtered import estimate_window_count
+
+    with np.load(os.path.join(out, "filtered_inputs.npz")) as z:
+        inputs = {k: z[k] for k in z.files}
+    res = {}
+    L = laplace(256).tocsr()
+    dia = as_operator(L, device="cpu")
+    for route, op in (("halo", halo_matvec_closure(dia, mesh)), ("gather", L)):
+        for case in FILTER_CASES:
+            vals, vecs, hist = _filtered(op, case, inputs, mesh)
+            res[f"{route}_{case}_vals"] = np.asarray(vals)
+            res[f"{route}_{case}_vecs"] = gather_rows(vecs, mesh).numpy()
+            res[f"{route}_{case}_matvecs"] = np.asarray(hist.total_matvecs)
+            res[f"{route}_{case}_sweeps"] = np.asarray(int(hist.restarts.max()))
+    ell = halo_matvec_closure(as_operator(laplace_3d(8), format="ell",
+                                          device="cpu"), mesh)
+    from arnoldi_tpu_torch import eigsh_filtered
+
+    vals, vecs, hist = eigsh_filtered(ell, None, FILTER_ELL_WINDOW, tol=1e-10,
+                                      dtype=np.float64,
+                                      generator=torch.Generator().manual_seed(3))
+    res["ell_vals"] = np.asarray(vals)
+    res["ell_vecs"] = gather_rows(vecs, mesh).numpy()
+    res["ell_matvecs"] = np.asarray(hist.total_matvecs)
+    res["count"] = np.asarray(estimate_window_count(
+        dia, (-2.2, -1.8), bounds=(-4.01, 0.01), mesh=mesh,
+        generator=torch.Generator().manual_seed(4)))
+    # the exchange clock: three halo products (b = 1, 2, 5) on a mesh whose
+    # clock runs, as under ARNOLDI_PHASES
+    import dataclasses
+
+    from arnoldi_tpu_torch.utils.profiling import WallClock
+
+    timed = dataclasses.replace(mesh, clock=WallClock())
+    H = halo_matvec_closure(dia, timed)
+    for b in (1, 2, 5):
+        H.matmat_rows(torch.ones(b, H.shape[0], dtype=H.dtype))
+    res["ring_calls"] = np.asarray([timed.clock.counts.get(k, 0) for k in
+                                    ("mesh.ring_start", "mesh.ring_wait")])
+    res["ring_seconds"] = np.asarray([timed.clock.totals.get(k, 0.0) for k in
+                                      ("mesh.ring_start", "mesh.ring_wait")])
+    return res
+
+
 SCENARIOS = {
+    "filtered_mesh": scenario_filtered_mesh,
     "matvecs": scenario_matvecs,
     "solves": scenario_solves,
     "eigh_gather": scenario_eigh_gather,
