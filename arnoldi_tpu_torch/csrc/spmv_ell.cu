@@ -1,7 +1,7 @@
 // ELLPACK SpMV: y[r] = sum_l data[r, l] * x[cols[r, l]], for nb columns at
 // once.  The columns are rows of (nb, n_cols) and (nb, n_rows) arrays (the
-// block expansion's b contiguous basis rows): column j of x starts at
-// x + j*n_cols, column j of y at y + j*n_rows.
+// block expansion's b contiguous basis rows, the filter's s): column j of x
+// starts at x + j*n_cols, column j of y at y + j*n_rows.
 //
 // Replaces: arnoldi_tpu/ops/pallas/spmv_ell.py, ell_matvec_pallas, and its
 // b-column form (EllOperator.matmat, a take + einsum in the JAX package).
@@ -9,72 +9,80 @@
 // from device memory; here the hardware gathers and L1/L2 keep x's hot part
 // on chip.  Padding slots hold column 0 with weight 0, so they need no branch.
 //
-// Bound: device-memory bytes, and the latency of the scattered x gathers.  A
-// row reads L values and L int32 column ids (row-major (n_rows, L) arrays)
-// plus L gathered x entries per column, for 2*L*nb flops.  At the scattered
+// Bound: device-memory bytes, and the latency of the x gathers.  A row
+// reads L values and L int32 column ids (row-major (n_rows, L) arrays) plus
+// L gathered x entries per column, for 2*L*nb flops.  At the scattered
 // 2^20-row test matrix (L = 25) in f64 a single column needs at least 331 MB
-// a call (values, ids, x once, y); eight columns 449 MB.
+// a call (values, ids, x once, y); eight columns 449 MB.  At the filter's b
+// = s the slots are 2 % of the bytes and x and y the rest: 154 MB at b =
+// 327 in f32 on laplace_3d(48)'s 2-rank halo shard (55,296 rows against
+// 59,904 columns, L = 7), 295 MB on laplace_3d(48) itself: only one launch
+// that streams all of x and y once can come near the bound.
 //
-// What held the first design (a group of G = pow2(L) <= 32 threads per row,
-// a shuffle tree per row) at 41 % (one column) and 13 % (eight) of that
-// bound, and what this design does about each:
-//  * idle lanes: G = 32 at L = 25 left 7 of 32 lanes idle.  Short rows now
-//    take one thread each, so every lane works.
-//  * too little in flight: a warp had one row's 300 B of values and ids in
-//    flight at a time.  Now a block stages whole tiles of R rows (one
-//    contiguous run of R*L values and ids, 19.2 KB for R = 64 at L = 25 in
-//    f64) with 16-byte cp.async copies, double-buffered in a persistent grid:
+// Every call is one launch.  The path is a fixed rule on (L, nb), and so
+// are its tile height and grid (ell_plan in ops/kernels/spmv_ell.py mirrors
+// it):
+//  * L <= kMaxShortL (32), one column: the persistent-tile kernel of the
+//    first redesign.  A persistent grid stages whole tiles of 32 rows
+//    (32*L values and ids) with 16-byte cp.async copies, double buffered:
 //    the next tile's copy is in flight while the current tile's x gathers
-//    run.  Each thread also issues a whole group of gathers before it uses
-//    them.  Tiles are small (R = 32 rows for one column, 64 for several) so
-//    that many blocks, and their gathers, are in flight on an SM: on the
-//    H100 at L = 25, 128-row tiles took 0.119 ms (one column) and 0.266 ms
-//    (eight), 64-row tiles 0.121 and 0.189 ms, 32-row tiles 0.116 and
-//    0.267 ms (scripts/ell_ab.py on variants of this file).
-//  * shuffle cost: each row ended in a 5-level shuffle tree (10 shuffles per
-//    f64 column).  A thread that owns its row needs none.
-//  * costly indexing: row = tid / G was a 64-bit division by a runtime value.
-//    The row is now threadIdx.x plus the tile's base; a gather is one 32-bit
-//    index scaled onto its column's base pointer (one IMAD.WIDE), whatever
-//    nb * n_cols is.
-//  * scattered y writes: lane 0 of each group wrote alone.  Now a warp
-//    writes 32 consecutive y values of each column.
-//  * the b-column form multiplied all of that (8 accumulators per lane, 8 x
-//    5 shuffle levels per row, a j < cnt test on every gather).  It now
-//    stages each value and id once for all its columns, puts ceil(b/2)
-//    threads on a staged row (two columns each: more gathers in flight), is
-//    instantiated per column count (NB = 1..8, no per-gather test), and
-//    writes each column coalesced.
-//
-// Which path runs is a fixed rule on L, and the tile height one on the
-// column count (never a caught failure):
-//  * L <= kMaxShortL (32): the staged tile kernel, a thread per row and
-//    column pair.  A thread walks its row's slots in order from shared
-//    memory.  Rows are
-//    L elements apart there, so for odd L a half-warp's f64 reads (and a
-//    warp's id reads) hit distinct banks; even L costs bank conflicts (up to
-//    8-way at L = 24), which the main path's matrices (L = 25) do not meet.
-//    Above 32 slots a row fills a warp's loads by itself, and a thread per
-//    row would leave fewer rows, so fewer gathers, in flight on an SM
-//    (an SM stages about 228 KB / (2 * L * 12 B) rows in f64).
+//    run.  A thread owns a row, walks its slots in ascending order from
+//    shared memory and issues 8 slots' gathers before their FMAs; a warp
+//    writes 32 consecutive y values.  That design took the first kernel (a
+//    group of pow2(L) threads per row, a shuffle tree per row) from 41 % of
+//    the bound to 86 % (PERF.md).
+//  * L <= kMaxShortL, b >= 2 (the block driver's b = 8, the filter's b = s):
+//    the column-group kernel.  The first redesign sent b columns 8 to a launch
+//    of the persistent-tile kernel (2 columns a thread): at the filter's b =
+//    327 that made 41 launches, each moving 4-7 MB in 4.6-6.8 us of device
+//    time on an H100 80GB HBM3 at 700.00 W, mostly its grid's ramp and tail,
+//    each staging every tile's slots again, and 264 us of host enqueue a call,
+//    which put the event time of the halo shard above cuSPARSE's single SpMM.
+//    Now block (tile, group) stages its 64-row tile once (one cp.async pass:
+//    the block has one tile) and serves the group's 64 columns from shared
+//    memory; a tile's slots come from device memory once and from L2 for the
+//    other groups (the slots of the main path's matrices fit L2). Threads map
+//    to (row, column) pairs with rows fastest, so a warp's gathers of one
+//    column fall on neighbouring x entries on a stencil; a thread keeps NC
+//    columns' sums in registers, issues each group of 4 slots' gathers before
+//    their FMAs, and writes y with streaming stores; a block takes no more
+//    threads a row (at most 4) than its group fills. NC is 4 above 8 columns
+//    (2 in complex128) and 2 up to 8.  Measured on that card
+//    (scripts/ell_ab.py on variants of this file, PERF.md §6): at b = 327 one
+//    group of all columns a block (a block that walks its tile's columns) lost
+//    3-15 %, 256-row tiles at short rows 8-21 % on three of four forms (the
+//    halo shard's 1,296 blocks are 1.2 waves of those that fit), 32-row tiles
+//    5-10 %, 32- or 128-column groups up to 4 %, 8 columns a thread 3-25 % and
+//    2 a thread 3-18 % (f32, f64); at b = 8, 4 columns a thread took 0.2270 ms
+//    (f64) and 0.2667 (c64) against 2's 0.1798 and 0.1873, and 2 beat the
+//    persistent tiles in f64 and c128 (0.1925 and 0.3729 ms) and matched them
+//    in c64 (0.1853).
 //  * L > kMaxShortL: a warp per row reads its slots straight from device
 //    memory (32 consecutive slots per load, long rows keep enough bytes in
-//    flight: 80 % of HBM peak at L = 129 in the first design); the
-//    single-column form keeps the first design's shuffle tree and its bits,
-//    and the b-column form replaces 8 x 5 tree levels by a reduce-scatter
-//    (4 + 2 + 1 + 1 + 1 shuffles) that sums every column in the same tree.
-// Every reduction runs in a fixed order (no atomics), so runs are
+//    flight); the single-column form keeps the first design's shuffle tree
+//    and its bits, and the b-column form sums 8 columns at a time in the
+//    same tree by a reduce-scatter (4 + 2 + 1 + 1 + 1 shuffles), its chunks
+//    of 8 looping inside the one launch at b > 8 (each chunk reading the
+//    row's slots again, from L1).
+// The staged paths read slots L elements apart in shared memory, so for odd
+// L a half-warp's f64 reads (and a warp's id reads) hit distinct banks;
+// even L costs bank conflicts (up to 8-way at L = 24), which the main
+// path's matrices (L = 7, 25) do not meet.
+//
+// The bits: every reduction runs in a fixed order (no atomics), so runs are
 // bit-identical, and every column of the b-column form gets the bits the
 // single-column form gives it: both forms of a path sum a column's slots in
-// the same order (ascending l in a thread; the same xor tree in a warp).
-// Sums accumulate in the operand dtype.
+// the same order (ascending l through arn::fma_rn from zero in a thread;
+// the same xor tree in a warp).  Tiles, groups, passes and chunks change
+// where and when a (row, column) pair is summed, never its order, so the
+// outputs equal the first kernel's bit for bit.  Sums accumulate in the
+// operand dtype.
 //
-// Complex forms (c64, c128): both paths over arn::complex values, each slot
+// Complex forms (c64, c128): all paths over arn::complex values, each slot
 // a fixed-order complex multiply-add (arn::fma_rn) and each shuffle moving
 // the two halves of a value.  A complex128 slot stages 20 bytes (value and
-// id), so the staged path fits fewer rows on an SM (82 KB for the two
-// 64-row stages at L = 32); every tile still starts 16-byte aligned, since
-// R is a multiple of 32 and a value is 8 or 16 bytes.
+// id); every stage stays under 48 KB (40 KB at most), and every tile starts
+// 16-byte aligned, since R is a multiple of 32 and a value is 4-16 bytes.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -83,22 +91,20 @@
 
 namespace {
 
-constexpr int kMaxShortL = 32;    // the staged path's longest row
+constexpr int kMaxShortL = 32;    // the staged paths' longest row
 constexpr int kWarpThreads = 256; // threads per block of the warp-per-row path
-constexpr int kMaxCols = 8;       // columns per launch
-constexpr int kStages = 2;
-constexpr int kThreadCols = 2;    // columns per thread of the staged path
+constexpr int kMaxCols = 8;       // columns of a warp chunk; b of 2 a thread
+constexpr int kStages = 2;        // stages of the single-column kernel
+constexpr int kTileRows = 32;     // rows per tile of the single-column kernel
+constexpr int kGroupRows = 64;    // rows per tile of the column-group kernel
+constexpr int kGroupCols = 64;    // columns per block of the column-group kernel
+constexpr int kGroupThreads = 256;  // the most threads a column-group block takes
 
-// Rows per staged tile of an NB-column launch: a multiple of 32, so that
-// every tile starts 16-byte aligned and no warp straddles two column groups.
-template <int NB>
-constexpr int kTileRows = NB == 1 ? 32 : 64;
-
-// Threads per row of the staged path: each takes kThreadCols of the NB
-// columns (the last one the rest), so b columns put ceil(b/2) threads on a
-// staged row and more gathers in flight per SM.
-template <int NB>
-constexpr int kGroups = (NB + kThreadCols - 1) / kThreadCols;
+// Columns a thread of the column-group kernel keeps in registers (its sums
+// and U slots' gathers) above kMaxCols columns: 4, or 2 for complex128; at
+// b <= kMaxCols it keeps 2 (more threads a row).
+template <typename T>
+constexpr int kRegCols = sizeof(T) == 16 ? 2 : 4;
 
 template <typename T>
 constexpr size_t stage_bytes(int rows, int L) {
@@ -126,6 +132,10 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_prev() {
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Start copying tile `tile` (rows [tile*R, +R)) into one stage.  A full
@@ -157,9 +167,18 @@ __device__ __forceinline__ void stage_tile(T* sv, int* sc, const T* data,
     }
 }
 
+// y = value, by a plain store or a streaming one (evict first).
+template <bool kStream, typename T>
+__device__ __forceinline__ void store(T* p, T v) {
+    if (kStream)
+        arn::stcs(p, v);
+    else
+        *p = v;
+}
+
 // One row's product with NC columns: the slots in ascending order from
 // shared memory, U slots' gathers issued before their FMAs.
-template <typename T, int NC>
+template <typename T, int NC, bool kStream = false>
 __device__ __forceinline__ void row_product(const T* d, const int* c, int L,
                                             const T* __restrict__ x, long long n_cols,
                                             T* __restrict__ y, long long n_rows,
@@ -193,22 +212,21 @@ __device__ __forceinline__ void row_product(const T* d, const int* c, int L,
         for (int j = 0; j < NC; ++j) acc[j] = arn::fma_rn(v, arn::ldg(xs[j] + col), acc[j]);
     }
 #pragma unroll
-    for (int j = 0; j < NC; ++j) y[j * n_rows + row] = acc[j];
+    for (int j = 0; j < NC; ++j) store<kStream>(y + j * n_rows + row, acc[j]);
 }
 
-template <typename T, int NB>
-__global__ void __launch_bounds__(kTileRows<NB> * kGroups<NB>)
+// One column: a persistent grid walks the tiles, a thread a row, the next
+// tile's copy in flight while the current tile's gathers run.
+template <typename T>
+__global__ void __launch_bounds__(kTileRows)
 spmv_ell_tiles_kernel(const T* __restrict__ data, const int* __restrict__ cols,
                       const T* __restrict__ x, T* __restrict__ y, long long n_rows,
                       long long n_cols, int L, long long n_tiles, int vec) {
-    constexpr int R = kTileRows<NB>;
+    constexpr int R = kTileRows;
     extern __shared__ __align__(16) unsigned char smem[];
     T* sv = reinterpret_cast<T*>(smem);                      // [kStages][R*L]
     int* sc = reinterpret_cast<int*>(sv + kStages * R * L);  // [kStages][R*L]
-    const int r = threadIdx.x % R;
-    const int j0 = static_cast<int>(threadIdx.x / R) * kThreadCols;
-    x += j0 * n_cols;
-    y += j0 * n_rows;
+    const int r = threadIdx.x;
 
     long long tile = blockIdx.x;
     int stage = 0;
@@ -223,97 +241,138 @@ spmv_ell_tiles_kernel(const T* __restrict__ data, const int* __restrict__ cols,
         cp_async_wait_prev();      // this thread's copies of `tile` have landed
         __syncthreads();           // and everyone else's
         const long long row = tile * R + r;
-        if (row < n_rows) {
-            const T* d = sv + stage * R * L + r * L;
-            const int* c = sc + stage * R * L + r * L;
-            constexpr int kLast = NB - (kGroups<NB> - 1) * kThreadCols;
-            if (kLast == kThreadCols || j0 + kThreadCols <= NB)
-                row_product<T, (NB < kThreadCols ? NB : kThreadCols)>(
-                    d, c, L, x, n_cols, y, n_rows, row);
-            else
-                row_product<T, kLast>(d, c, L, x, n_cols, y, n_rows, row);
-        }
+        if (row < n_rows)
+            row_product<T, 1>(sv + stage * R * L + r * L, sc + stage * R * L + r * L,
+                              L, x, n_cols, y, n_rows, row);
         __syncthreads();           // the stage is read out before it is refilled
         stage ^= 1;
     }
 }
 
-// Long rows: a warp per row, slots l = lane, lane + 32, ...
-template <typename T, int NB>
+// b >= 2 columns (the block driver's b = 8, the filter's b = s): block
+// (tile, group) stages its R-row tile once and serves the group's
+// kGroupCols columns from it.  Thread t takes row t % R of the tile (rows
+// fastest: a warp's gathers of one column fall on neighbouring x entries on
+// a stencil) and, of each pass of (blockDim.x / R) * NC columns, the NC at
+// (t / R) * NC; the launch gives a block no more lanes (threads a row) than
+// its group's columns fill.
+template <typename T, int NC>
+__global__ void __launch_bounds__(kGroupThreads)
+spmv_ell_group_kernel(const T* __restrict__ data, const int* __restrict__ cols,
+                      const T* __restrict__ x, T* __restrict__ y, long long n_rows,
+                      long long n_cols, int L, int nb, int vec) {
+    constexpr int R = kGroupRows;
+    extern __shared__ __align__(16) unsigned char smem[];
+    T* sv = reinterpret_cast<T*>(smem);             // [R*L]
+    int* sc = reinterpret_cast<int*>(sv + R * L);   // [R*L]
+    const long long tile = blockIdx.x;
+    stage_tile<T, R>(sv, sc, data, cols, tile, n_rows, L, vec);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    const int r = threadIdx.x % R;
+    const long long row = tile * R + r;
+    if (row >= n_rows) return;   // no barrier follows
+    const T* d = sv + r * L;
+    const int* c = sc + r * L;
+    const int pass = static_cast<int>(blockDim.x / R) * NC;
+    const int j_end = min(nb, static_cast<int>(blockIdx.y + 1) * kGroupCols);
+    for (int j = static_cast<int>(blockIdx.y) * kGroupCols
+                 + static_cast<int>(threadIdx.x / R) * NC;
+         j < j_end; j += pass) {
+        const T* xj = x + static_cast<long long>(j) * n_cols;
+        T* yj = y + static_cast<long long>(j) * n_rows;
+        const int cnt = min(NC, j_end - j);
+        if (cnt == NC) {
+            row_product<T, NC, true>(d, c, L, xj, n_cols, yj, n_rows, row);
+        } else {   // the group's ragged end: two columns, then one
+            int k = 0;
+            for (; k + 2 <= cnt; k += 2)
+                row_product<T, 2, true>(d, c, L, xj + k * n_cols, n_cols,
+                                        yj + k * n_rows, n_rows, row);
+            if (k < cnt)
+                row_product<T, 1, true>(d, c, L, xj + k * n_cols, n_cols,
+                                        yj + k * n_rows, n_rows, row);
+        }
+    }
+}
+
+// Long rows: a warp per row, slots l = lane, lane + 32, ...  kChunks: the
+// columns go kMaxCols at a time through one launch (b > kMaxCols; the last
+// chunk may be short), each chunk reading the row's slots again (from L1).
+template <typename T, int NB, bool kChunks>
 __global__ void __launch_bounds__(kWarpThreads)
 spmv_ell_warp_kernel(const T* __restrict__ data, const int* __restrict__ cols,
                      const T* __restrict__ x, T* __restrict__ y, long long n_rows,
-                     long long n_cols, int L) {
+                     long long n_cols, int L, int nb) {
     const long long row = static_cast<long long>(blockIdx.x) * (kWarpThreads / 32)
                           + (threadIdx.x >> 5);
     if (row >= n_rows) return;   // the whole warp: a warp holds one row
     const int lane = threadIdx.x & 31;
     const T* d = data + row * L;
     const int* c = cols + row * L;
-    const T* xs[NB];
+    for (int j0 = 0; j0 < (kChunks ? nb : NB); j0 += kMaxCols) {
+        const int cnt = kChunks ? min(kMaxCols, nb - j0) : NB;
+        const T* xs[NB];
 #pragma unroll
-    for (int j = 0; j < NB; ++j) xs[j] = x + j * n_cols;
-    T acc[kMaxCols];
+        for (int j = 0; j < NB; ++j) xs[j] = x + static_cast<long long>(j0 + j) * n_cols;
+        T acc[kMaxCols];
 #pragma unroll
-    for (int j = 0; j < kMaxCols; ++j) acc[j] = T(0);
-    for (int l = lane; l < L; l += 32) {
-        const T v = d[l];
-        const int col = c[l];
+        for (int j = 0; j < kMaxCols; ++j) acc[j] = T(0);
+        for (int l = lane; l < L; l += 32) {
+            const T v = d[l];
+            const int col = c[l];
 #pragma unroll
-        for (int j = 0; j < NB; ++j) acc[j] = arn::fma_rn(v, arn::ldg(xs[j] + col), acc[j]);
+            for (int j = 0; j < NB; ++j)
+                if (j < cnt) acc[j] = arn::fma_rn(v, arn::ldg(xs[j] + col), acc[j]);
+        }
+        if (NB == 1) {
+            for (int off = 16; off > 0; off >>= 1)
+                acc[0] += arn::shfl_down(acc[0], off);
+            if (lane == 0) y[row] = acc[0];
+            return;
+        }
+        // Reduce-scatter over the 8 column slots (unused ones hold 0 and are
+        // not written): at each level a lane keeps half of its columns and
+        // adds its xor partner's copies of them.  Each column is the xor
+        // tree of the 32 lanes' partial sums, the tree the single-column
+        // form's shuffle-down leaves in lane 0 (each level adds the same two
+        // subtotals, and IEEE addition commutes).  Lane 4j ends with column j.
+        const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+        T h4[4], h2[2];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const T give = b4 ? acc[k] : acc[4 + k];
+            const T keep = b4 ? acc[4 + k] : acc[k];
+            h4[k] = keep + arn::shfl_xor(give, 16);
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            const T give = b3 ? h4[k] : h4[2 + k];
+            const T keep = b3 ? h4[2 + k] : h4[k];
+            h2[k] = keep + arn::shfl_xor(give, 8);
+        }
+        T s = (b2 ? h2[1] : h2[0]) + arn::shfl_xor(b2 ? h2[0] : h2[1], 4);
+        s += arn::shfl_xor(s, 2);
+        s += arn::shfl_xor(s, 1);
+        const int j = lane >> 2;
+        if ((lane & 3) == 0 && j < cnt) y[(j0 + j) * n_rows + row] = s;
     }
-    if (NB == 1) {
-        for (int off = 16; off > 0; off >>= 1)
-            acc[0] += arn::shfl_down(acc[0], off);
-        if (lane == 0) y[row] = acc[0];
-        return;
-    }
-    // Reduce-scatter over the 8 column slots (unused ones hold 0 and are not
-    // written): at each level a lane keeps half of its columns and adds its
-    // xor partner's copies of them.  Each column is the xor tree of the
-    // 32 lanes' partial sums, the tree the single-column form's shuffle-down
-    // leaves in lane 0 (each level adds the same two subtotals, and IEEE
-    // addition commutes).  Lane 4j ends with column j.
-    const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
-    T h4[4], h2[2];
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-        const T give = b4 ? acc[k] : acc[4 + k];
-        const T keep = b4 ? acc[4 + k] : acc[k];
-        h4[k] = keep + arn::shfl_xor(give, 16);
-    }
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-        const T give = b3 ? h4[k] : h4[2 + k];
-        const T keep = b3 ? h4[2 + k] : h4[k];
-        h2[k] = keep + arn::shfl_xor(give, 8);
-    }
-    T s = (b2 ? h2[1] : h2[0]) + arn::shfl_xor(b2 ? h2[0] : h2[1], 4);
-    s += arn::shfl_xor(s, 2);
-    s += arn::shfl_xor(s, 1);
-    const int j = lane >> 2;
-    if ((lane & 3) == 0 && j < NB) y[j * n_rows + row] = s;
 }
 
-template <typename T, int NB>
+template <typename T>
 int launch_tiles(const T* data, const int* cols, const T* x, T* y, long long n_rows,
                  long long n_cols, int L, cudaStream_t s) {
-    constexpr int R = kTileRows<NB>, threads = R * kGroups<NB>;
-    auto kernel = spmv_ell_tiles_kernel<T, NB>;
-    // Let this instantiation take the longest rows' two stages (48 KB for 64
-    // rows in f64, the most a launch gets without the attribute), once: the
-    // static is per <T, NB>.
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kStages * stage_bytes<T>(R, kMaxShortL)));
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    // Blocks that fit an SM at this L, per instantiation and L (a fixed rule
-    // on the shapes: the grid never changes which thread sums which row).
+    constexpr int R = kTileRows;
+    auto kernel = spmv_ell_tiles_kernel<T>;
+    // Blocks that fit an SM at this L, per dtype and L (a fixed rule on the
+    // shapes: the grid never changes which thread sums which row).  The
+    // two stages of the longest rows take 40 KB at most: no attribute.
     static int per_sm[kMaxShortL + 1] = {};
     const size_t smem = kStages * stage_bytes<T>(R, L);
     if (per_sm[L] == 0) {
         const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm[L], kernel, threads, smem);
+            &per_sm[L], kernel, R, smem);
         if (err != cudaSuccess) return static_cast<int>(err);
         if (per_sm[L] < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     }
@@ -324,21 +383,38 @@ int launch_tiles(const T* data, const int* cols, const T* x, T* y, long long n_r
         std::min(n_tiles, static_cast<long long>(per_sm[L]) * n_sm));
     const int vec = (reinterpret_cast<size_t>(data) % 16 == 0)
                     && (reinterpret_cast<size_t>(cols) % 16 == 0);
-    kernel<<<blocks, threads, smem, s>>>(data, cols, x, y, n_rows, n_cols, L, n_tiles, vec);
+    kernel<<<blocks, R, smem, s>>>(data, cols, x, y, n_rows, n_cols, L, n_tiles, vec);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NB>
-int launch_nb(const T* data, const int* cols, const T* x, T* y, long long n_rows,
-              long long n_cols, int L, cudaStream_t s) {
-    if (L <= kMaxShortL) return launch_tiles<T, NB>(data, cols, x, y, n_rows, n_cols, L, s);
+template <typename T, int NC>
+int launch_group(const T* data, const int* cols, const T* x, T* y, long long n_rows,
+                 long long n_cols, int L, int nb, cudaStream_t s) {
+    constexpr int R = kGroupRows;
+    const int lanes = std::min(kGroupThreads / R,
+                               (std::min(nb, kGroupCols) + NC - 1) / NC);
+    const dim3 grid(static_cast<unsigned>((n_rows + R - 1) / R),
+                    static_cast<unsigned>((nb + kGroupCols - 1) / kGroupCols));
+    const int vec = (reinterpret_cast<size_t>(data) % 16 == 0)
+                    && (reinterpret_cast<size_t>(cols) % 16 == 0);
+    spmv_ell_group_kernel<T, NC><<<grid, R * lanes, stage_bytes<T>(R, L), s>>>(
+        data, cols, x, y, n_rows, n_cols, L, nb, vec);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int NB, bool kChunks = false>
+int launch_warp(const T* data, const int* cols, const T* x, T* y, long long n_rows,
+                long long n_cols, int L, int nb, cudaStream_t s) {
     const unsigned blocks = static_cast<unsigned>(
         (n_rows + kWarpThreads / 32 - 1) / (kWarpThreads / 32));
-    spmv_ell_warp_kernel<T, NB><<<blocks, kWarpThreads, 0, s>>>(
-        data, cols, x, y, n_rows, n_cols, L);
+    spmv_ell_warp_kernel<T, NB, kChunks><<<blocks, kWarpThreads, 0, s>>>(
+        data, cols, x, y, n_rows, n_cols, L, nb);
     return static_cast<int>(cudaGetLastError());
 }
 
+// One launch a call.  The path is a fixed rule on (L, nb): L > kMaxShortL
+// the warp per row (nb > kMaxCols in chunks of kMaxCols); else nb = 1 the
+// single-column tiles, nb >= 2 the column groups.
 template <typename T>
 int launch_ell(const T* data, const int* cols, const T* x, T* y,
                long long n_rows, long long n_cols, int L, int nb, void* stream) {
@@ -346,25 +422,24 @@ int launch_ell(const T* data, const int* cols, const T* x, T* y,
         return static_cast<int>(cudaErrorInvalidValue);
     if (n_rows == 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
-    // Columns go kMaxCols to a launch; each launch reads the values and ids
-    // once for its columns.
-    for (int j0 = 0; j0 < nb; j0 += kMaxCols) {
-        const T* xj = x + static_cast<long long>(j0) * n_cols;
-        T* yj = y + static_cast<long long>(j0) * n_rows;
-        int rc;
-        switch (std::min(kMaxCols, nb - j0)) {
-            case 1: rc = launch_nb<T, 1>(data, cols, xj, yj, n_rows, n_cols, L, s); break;
-            case 2: rc = launch_nb<T, 2>(data, cols, xj, yj, n_rows, n_cols, L, s); break;
-            case 3: rc = launch_nb<T, 3>(data, cols, xj, yj, n_rows, n_cols, L, s); break;
-            case 4: rc = launch_nb<T, 4>(data, cols, xj, yj, n_rows, n_cols, L, s); break;
-            case 5: rc = launch_nb<T, 5>(data, cols, xj, yj, n_rows, n_cols, L, s); break;
-            case 6: rc = launch_nb<T, 6>(data, cols, xj, yj, n_rows, n_cols, L, s); break;
-            case 7: rc = launch_nb<T, 7>(data, cols, xj, yj, n_rows, n_cols, L, s); break;
-            default: rc = launch_nb<T, 8>(data, cols, xj, yj, n_rows, n_cols, L, s); break;
+    if (L > kMaxShortL) {
+        switch (nb) {
+            case 1: return launch_warp<T, 1>(data, cols, x, y, n_rows, n_cols, L, nb, s);
+            case 2: return launch_warp<T, 2>(data, cols, x, y, n_rows, n_cols, L, nb, s);
+            case 3: return launch_warp<T, 3>(data, cols, x, y, n_rows, n_cols, L, nb, s);
+            case 4: return launch_warp<T, 4>(data, cols, x, y, n_rows, n_cols, L, nb, s);
+            case 5: return launch_warp<T, 5>(data, cols, x, y, n_rows, n_cols, L, nb, s);
+            case 6: return launch_warp<T, 6>(data, cols, x, y, n_rows, n_cols, L, nb, s);
+            case 7: return launch_warp<T, 7>(data, cols, x, y, n_rows, n_cols, L, nb, s);
+            case 8: return launch_warp<T, 8>(data, cols, x, y, n_rows, n_cols, L, nb, s);
+            default: return launch_warp<T, kMaxCols, true>(data, cols, x, y, n_rows,
+                                                           n_cols, L, nb, s);
         }
-        if (rc != 0) return rc;
     }
-    return 0;
+    if (nb == 1) return launch_tiles<T>(data, cols, x, y, n_rows, n_cols, L, s);
+    if (nb <= kMaxCols)
+        return launch_group<T, 2>(data, cols, x, y, n_rows, n_cols, L, nb, s);
+    return launch_group<T, kRegCols<T>>(data, cols, x, y, n_rows, n_cols, L, nb, s);
 }
 
 }  // namespace

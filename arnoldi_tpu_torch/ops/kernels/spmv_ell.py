@@ -5,15 +5,79 @@ Counterpart of ``arnoldi_tpu/ops/pallas/spmv_ell.py``.  On CUDA tensors
 of a ``(b, n_cols)`` array) launch the hand-written kernel
 ``csrc/spmv_ell.cu``; on CPU tensors they run :func:`ell_matvec_plain`.
 ``x`` may be longer than the row count (rectangular operators): the gather
-width comes from ``x``.  The kernel picks its path from the row length L
-alone (a thread per row over tiles staged in shared memory for L <= 32, a
-warp per row above) and takes up to 8 columns a launch; the design note is
-at the top of ``csrc/spmv_ell.cu``.
+width comes from ``x``.  Every call is one launch, whose path is a fixed
+rule on the row length L and the column count b (:func:`ell_plan` mirrors
+it); the design note is at the top of ``csrc/spmv_ell.cu``.
+
+Both wrappers take the lean launch path of ``spmv_banded.py``: the C entry
+points are resolved once, the operands are checked by plain attribute
+compares (:func:`_build.operand_device`) and the stream handle is read raw
+(:func:`_build.launch`).
 """
+
+import dataclasses
 
 import torch
 
 from . import _build
+
+#: The staged paths' longest row (kMaxShortL in the CUDA source); longer
+#: rows take a warp each.
+MAX_SHORT_L = 32
+#: Columns of a warp-path chunk (kMaxCols); up to this many columns a
+#: thread of the column-group kernel takes 2 at a time, above it 4 (2 in
+#: complex128).
+WARP_COLS = 8
+#: Rows of a tile: the single-column kernel's (kTileRows), the column-group
+#: kernel's (kGroupRows).
+TILE_ROWS, GROUP_ROWS = 32, 64
+#: Columns a block of the column-group kernel serves (kGroupCols), and the
+#: most threads it takes (kGroupThreads, also the warp path's block).
+GROUP_COLS, BLOCK_THREADS = 64, 256
+
+_entries = None   # {dtype: C entry point}, resolved on the first launch
+
+
+@dataclasses.dataclass(frozen=True)
+class EllPlan:
+    """One launch of the ELL kernel (the arithmetic of ``launch_ell`` in
+    ``csrc/spmv_ell.cu``).
+
+    ``path``: ``"tiles"`` (L <= 32, one column: a persistent grid walks
+    tiles of ``tile_rows`` rows staged in shared memory, a thread a row;
+    ``grid`` counts the tiles, and the launch takes at most as many blocks
+    as fit the card), ``"groups"`` (L <= 32, b >= 2: block ``(tile,
+    group)`` stages its tile once and serves ``group_cols`` columns from
+    it, ``thread_cols`` of them a thread at a time, with ``threads //
+    tile_rows`` threads a row) or ``"warp"`` (L > 32: a warp a row,
+    ``tile_rows`` rows a block, the columns ``group_cols`` at a time in one
+    launch).
+    """
+
+    path: str
+    tile_rows: int
+    group_cols: int
+    thread_cols: int
+    threads: int
+    grid: tuple
+
+
+def ell_plan(n_rows, L, nb, dtype):
+    """The launch ``ell_matvec`` (``nb = 1``) or ``ell_matmat`` makes for
+    an ``(n_rows, L)`` operator with ``nb`` columns of ``dtype``."""
+    if n_rows < 1 or L < 1 or nb < 1:
+        raise ValueError(f"ell_plan: n_rows {n_rows}, L {L}, nb {nb}")
+    if L > MAX_SHORT_L:
+        rows = BLOCK_THREADS // 32
+        return EllPlan("warp", rows, min(nb, WARP_COLS), 1, BLOCK_THREADS,
+                       (-(-n_rows // rows), 1))
+    if nb == 1:
+        return EllPlan("tiles", TILE_ROWS, 1, 1, TILE_ROWS,
+                       (-(-n_rows // TILE_ROWS), 1))
+    per = 2 if nb <= WARP_COLS or dtype == torch.complex128 else 4
+    lanes = min(BLOCK_THREADS // GROUP_ROWS, -(-min(nb, GROUP_COLS) // per))
+    return EllPlan("groups", GROUP_ROWS, GROUP_COLS, per, GROUP_ROWS * lanes,
+                   (-(-n_rows // GROUP_ROWS), -(-nb // GROUP_COLS)))
 
 
 def ell_matvec_plain(data, cols, x):
@@ -23,27 +87,31 @@ def ell_matvec_plain(data, cols, x):
 
 
 def _launch(kernel, wrapper, data, cols, x):
-    cuda = _build.on_cuda(kernel, data, x)
-    if cols.dtype != torch.int32 or cols.device != data.device \
-            or not cols.is_contiguous():
-        raise TypeError(f"{kernel}: cols must be contiguous int32 on the "
-                        "operands' device")
+    device = _build.operand_device(kernel, data, x)
+    if cols.dtype != torch.int32:
+        raise TypeError(f"{kernel}: cols must be int32, got {cols.dtype}")
+    if not ((cols.is_cuda and cols.get_device() == device) if device >= 0
+            else cols.is_cpu):
+        raise ValueError(f"{kernel}: cols on {cols.device}, operands on "
+                         f"{data.device}")
+    if not cols.is_contiguous():
+        raise ValueError(f"{kernel}: cols must be contiguous")
     if data.ndim != 2 or cols.shape != data.shape:
         raise ValueError(f"{kernel}: data {tuple(data.shape)}, cols "
                          f"{tuple(cols.shape)}, x {tuple(x.shape)}")
-    if not cuda:
+    if device < 0:
         return ell_matvec_plain(data, cols, x)
+    global _entries
+    if _entries is None:
+        _entries = _build.entry_points("arn_spmv_ell")
     n_rows, L = data.shape
-    n_cols = x.shape[-1]
     nb = x.shape[0] if x.ndim == 2 else 1
-    y = torch.empty((*x.shape[:-1], n_rows), dtype=data.dtype, device=data.device)
-    fn = _build.kernel_fn("arn_spmv_ell", data.dtype)
-    guard, stream = _build.launch_context(data.device)
-    with guard:
-        rc = fn(data.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-                n_rows, n_cols, L, nb, stream)
-    _build.check(rc, kernel)
-    _build.count_launch(wrapper, data.dtype)
+    y = x.new_empty((nb, n_rows) if x.ndim == 2 else (n_rows,))
+    rc = _build.launch(_entries[x.dtype], device, data.data_ptr(), cols.data_ptr(),
+                       x.data_ptr(), y.data_ptr(), n_rows, x.shape[-1], L, nb)
+    if rc:
+        _build.check(rc, kernel)
+    _build.count_launch(wrapper, x.dtype)
     return y
 
 
@@ -62,8 +130,11 @@ ell_matvec.dtype_launches = {}
 
 def ell_matmat(data, cols, X):
     """ELL product with b columns given as the rows of ``X`` (b, n_cols);
-    returns (b, n_rows).  Each value and id is read once for all b
-    columns."""
+    returns (b, n_rows).  One launch at any b: a block stages its tile's
+    values and ids once and serves a group of up to 64 columns from shared
+    memory, so they are read from device memory once per 64 columns
+    (:func:`ell_plan`); rows of more than 32 slots take a warp each, 8
+    columns at a time."""
     if X.ndim != 2:
         raise ValueError(f"spmv_ell_cols: X must be (b, n_cols), got "
                          f"{tuple(X.shape)}")

@@ -22,8 +22,10 @@ nonzero before the last line is printed):
    call takes to issue (the host clock over 1000 calls, read before the
    synchronize);
    then ELL at edge shapes (row lengths 1-129 around the 32-slot rule, b =
-   1, 3, 8, 11, a row count that is not a multiple of the tile, unaligned
-   views) and on the symmetrized matrix S (L = 129) with its times; then
+   1, 3, 8, 11, 67, 327, a row count that is not a multiple of the tile,
+   unaligned views; every column of the b-column form bit for bit against
+   the single-column form) and on the symmetrized matrix S (L = 129) with
+   its times; then
    the BSR window kernel at edge shapes (b = 1, 3, 8, 11, 2^17 - 5 rows,
    unaligned views and column strides, (8, 8) and (4, 4) blocks), every
    column of its b-column form bit for bit against its single-column
@@ -255,15 +257,17 @@ phase 45's and 46(a)'s s and at b = 297 (every column bit for bit against
 the single-column kernel) and timed at b = 297 beside its bound and
 cuSPARSE's SpMM of the window's CSR, and ``spmv_ell_cols`` on
 laplace_3d(48)'s 2-rank ELL shard likewise at 46(b)'s s (timed in
-float32).
+float32 and float64).
 After phase 34 (outside every counted window) ``spmv_dia_cols`` on
 laplace_3d(64) and ``spmv_ell_cols`` on laplace_3d(48) as ELL are held
 against their plain versions at the filter's widths (b = 32, 64, each
-slice's s and 8 x 37 + 3) in float64 and float32 (every column of the
-DIA kernel bit for bit against the single-column kernel) and timed at b =
-s beside their bound and cuSPARSE's SpMM (DIA with both enqueue times),
-and one sweep of phase 32's first slice
-runs under the profiler (device time by kernel family, busy share).
+slice's s and 8 x 37 + 3) in float64 and float32 (every column of both
+b-column kernels bit for bit against the single-column kernel) and timed
+at b = s beside their bound and cuSPARSE's SpMM (DIA in float64 with both
+enqueue times, ELL in float32 and float64); ten profiled ELL products at
+phase 33's s must show one kernel a call; and one sweep of phase 32's
+first slice (float64, DIA) and one of phase 33's geometry (float32, ELL)
+run under the profiler (device time by kernel family, busy share).
 
 Solves M, N and O run twice and must count the same matvecs both times;
 Q, R, T and X run once more under the profiler. The complex solves',
@@ -302,12 +306,14 @@ The line before the last is a JSON object with each kernel's route,
 source, launches, error, times, bound and library time (and a record of
 each complex form, named ``kernel:dtype``, whose launches are the complex
 path's, and of ``spmv_dia_cols`` and ``spmv_ell_cols`` at the filter's
-widths, named ``kernel:filter``, whose launches are phases 32-34's in its
-dtype, and of each complex BSR form, named ``kernel:dtype`` too, whose
+widths, named ``kernel:filter`` (``spmv_ell_cols:filter_f64`` for the
+float64 ELL form), whose launches are phases 32-34's in its dtype, and of
+each complex BSR form, named ``kernel:dtype`` too, whose
 launches are phases 35-39's; ``spmv_dia_ext`` and ``spmv_dia_ext_cols``
 count the sharded path's launches, phases 41-44; and of the halo shard
-forms at b = s, ``spmv_dia_ext_cols:filter`` and ``spmv_ell_cols:halo``,
-whose launches are phases 45-46's); the last line is
+forms at b = s, ``spmv_dia_ext_cols:filter`` and ``spmv_ell_cols:halo``
+(``:halo_f64`` in float64), whose launches are phases 45-46's, all
+dtypes); the last line is
 ``{"ok": true, "device": {...}}``. Needs no network and imports nothing
 of JAX.
 """
@@ -445,6 +451,54 @@ def ell_bytes(op, nb):
     item = op.data.element_size()
     n_rows, n_cols = op.shape
     return op.nnz * (item + 4) + nb * (n_rows + n_cols) * item
+
+
+def ell_plain(data, cols, X):
+    """The ELL plain version a few columns at a time, so that its (b,
+    n_rows, L) intermediate stays under 2 GB at the widest b."""
+    import torch
+
+    from arnoldi_tpu_torch.ops.kernels import spmv_ell
+
+    if X.ndim == 1:
+        return spmv_ell.ell_matvec_plain(data, cols, X)
+    step = max(1, 2**31 // (data.numel() * data.element_size()))
+    return torch.cat([spmv_ell.ell_matvec_plain(data, cols, X[j:j + step])
+                      for j in range(0, X.shape[0], step)])
+
+
+def ell_columns_single(label, data, cols, X, Y):
+    """Fail unless every column of the b-column product ``Y`` equals the
+    single-column kernel's result on that column, bit for bit."""
+    import torch
+
+    from arnoldi_tpu_torch.ops.kernels import spmv_ell
+
+    for j in range(X.shape[0]):
+        if not torch.equal(Y[j], spmv_ell.ell_matvec(data, cols, X[j])):
+            fail(f"{label}: column {j} differs from the single-column kernel")
+
+
+def kernels_in_calls(fn, name, reps=10):
+    """The device kernels whose name holds ``name`` that the profiler saw
+    over ``reps`` calls of ``fn`` (retried twice when it saw none).  The
+    profiler on the H100 has missed device events, so a count below
+    ``reps`` still bounds the kernels a call by one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        n = sum(1 for ev in prof.events()
+                if ev.device_type == DeviceType.CUDA and name in ev.name)
+        if n:
+            return n
+    return 0
 
 
 def csr_tensor(A, dtype, device):
@@ -842,7 +896,8 @@ def phase_kernels_cols_and_bsr(mats, rec, gen):
 
 
 ELL_EDGE_L = (1, 4, 24, 25, 32, 33, 129)   # both sides of the 32-slot rule
-ELL_EDGE_NB = (1, 3, 8, 11)                 # 11: a launch of 8 columns and one of 3
+# 11, 67: a group's ragged end; 327: six column groups (the filter's b = s)
+ELL_EDGE_NB = (1, 3, 8, 11, 67, 327)
 ELL_EDGE_SHAPE = (100_003, 70_001)          # rows (not a multiple of a tile), columns
 
 
@@ -851,7 +906,9 @@ def phase_ell_edges(mats, rec, gen):
     ELL_EDGE_SHAPE (a row count that is not a multiple of the 32- or 64-row
     tile) at each row length in ELL_EDGE_L, b in ELL_EDGE_NB, float64 and float32,
     plus views one row in (not 16-byte aligned: the element-wise staging
-    copies), each against the plain version; then the symmetrized matrix S
+    copies), each against the plain version and every column of the
+    b-column form bit for bit against the single-column kernel; then the
+    symmetrized matrix S
     (L = 129, solves J and K) timed against its bound and cuSPARSE."""
     import torch
 
@@ -877,10 +934,10 @@ def phase_ell_edges(mats, rec, gen):
                     continue
                 Y = spmv_ell.ell_matmat(data, cols, X)
                 rec["spmv_ell_cols"].check(f"{label} b={nb}", dtype, Y,
-                                           spmv_ell.ell_matvec_plain(data, cols, X))
-                if not torch.equal(Y[nb - 1], spmv_ell.ell_matvec(data, cols, X[nb - 1])):
-                    fail(f"spmv_ell_cols L={L} b={nb}: a column differs from the "
-                         "single-column kernel")
+                                           ell_plain(data, cols, X))
+                ell_columns_single(f"spmv_ell_cols L={L} b={nb} {dtype}", data,
+                                   cols, X, Y)
+                del Y, X
             if L in (25, 33):
                 dv, cv = data[1:], cols[1:]
                 X = torch.randn(3, n_cols, generator=gen, device=dev, dtype=dtype)
@@ -2630,7 +2687,8 @@ def phase_filtered(mats, references, dcounts, refs, device="cuda"):
     columns).  ``refs``: solve B's ARPACK values; ``references["Z"]``:
     ARPACK's ten largest-real values.  Returns ``([(label, history, wall),
     ...], {label: {summary field: value}}, {"dia": s of each phase-32
-    slice, "ell": phase 33's s, "geometry": phase 32's first slice's})``."""
+    slice, "ell": phase 33's s, "geometry": phase 32's first slice's,
+    "geometry_33": phase 33's})``."""
     import numpy as np
     import torch
 
@@ -2703,7 +2761,7 @@ def phase_filtered(mats, references, dcounts, refs, device="cuda"):
     extra["33"] = {"s": geo["s"], "degree": geo["degree"],
                    "float32_matvecs": hist.total_matvecs - geo["f64_matvecs"],
                    "float64_matvecs": geo["f64_matvecs"], "phases": hist.phases}
-    widths["ell"] = [geo["s"]]
+    widths["ell"], widths["geometry_33"] = [geo["s"]], geo
     del V
 
     print("phase 34: explicit_restarts_with_deflation(the scattered 2^20 matrix "
@@ -2766,9 +2824,9 @@ def ring_time(mesh):
 def filter_sweep_split(op, geometry, mesh=None, warm=True):
     """One filtered sweep of ``op`` at ``geometry``'s s, degree and window,
     from a random orthonormal block, under the profiler (after a warm sweep
-    when ``warm``): device time by kernel family (the DIA kernel, copies,
-    torch's elementwise kernels, the gemms, the rest) and the busy share of
-    the profiled wall; under a row ``mesh`` (``op`` this rank's sharded
+    when ``warm``): device time by kernel family (the DIA or ELL kernel,
+    copies, torch's elementwise kernels, the gemms, the rest) and the busy
+    share of the profiled wall; under a row ``mesh`` (``op`` this rank's sharded
     block) also the ring exchange's host time from the mesh's clock.  Rank
     0 prints."""
     import torch
@@ -2810,6 +2868,7 @@ def filter_sweep_split(op, geometry, mesh=None, warm=True):
             continue
         name = ev.name().lower()
         key = (dia if "spmv_dia" in name else
+               "spmv_ell_cols" if "spmv_ell" in name else
                "memcpy" if "memcpy" in name else
                "elementwise" if "elementwise" in name or "vectorized" in name else
                "gemm" if any(t in name for t in ("gemm", "xmma", "cutlass", "sm90")) else
@@ -2843,12 +2902,13 @@ def phase_filter_kernels(mats, widths, gen, device="cuda"):
     phases 32 and 33 took; the launches here are outside every counted
     window): ``spmv_dia_cols`` on laplace_3d(64) and ``spmv_ell_cols`` on
     laplace_3d(48) as ELL against their plain versions at b = 32, 64, each
-    slice's s and 8k + 3, in float64 and float32; timed (events and
-    profiler device time), bound (bands or nonzeros read once, X read and
-    Y written once) and cuSPARSE's SpMM at b = the g = 64 slice's s in
-    float64 (DIA, with the host enqueue time of both) and at b = phase
-    33's s in float32 (ELL); every column of the DIA b-column kernel at
-    every width bit for bit against the single-column kernel.  Returns
+    slice's s and 8k + 3, in float64 and float32, every column of either
+    b-column kernel at every width bit for bit against its single-column
+    kernel; timed (events and profiler device time), bound (bands or
+    nonzeros read once, X read and Y written once) and cuSPARSE's SpMM at b
+    = the g = 64 slice's s in float64 (DIA, with the host enqueue time of
+    both) and at b = phase 33's s in float32 and float64 (ELL); ten
+    profiled ELL calls at that s must show one kernel a call.  Returns
     ``{record name: KernelRecord}``."""
     import torch
 
@@ -2856,14 +2916,14 @@ def phase_filter_kernels(mats, widths, gen, device="cuda"):
     from arnoldi_tpu_torch.ops.kernels import spmv_banded, spmv_ell
 
     dev = torch.device(device)
-    cases = (   # record, matrix, format, the timed dtype, widths, label
-        ("spmv_dia_cols:filter", "laplace3d64", BandedOperator, torch.float64,
+    cases = (   # matrix, format, {timed dtype: record}, widths, label
+        ("laplace3d64", BandedOperator, {torch.float64: "spmv_dia_cols:filter"},
          widths["dia"], "DIA laplace_3d(64)"),
-        ("spmv_ell_cols:filter", "laplace3d48", EllOperator, torch.float32,
+        ("laplace3d48", EllOperator, {torch.float32: "spmv_ell_cols:filter",
+                                      torch.float64: "spmv_ell_cols:filter_f64"},
          widths["ell"], "ELL laplace_3d(48)"))
     recs = {}
-    for name, key, fmt, timed, slice_widths, label in cases:
-        r = recs[name] = KernelRecord(timed)
+    for key, fmt, timed, slice_widths, label in cases:
         op64 = fmt.from_scipy(mats[key], device=dev)
         for dtype in (torch.float64, torch.float32):
             op = cast_operator(op64, dtype)
@@ -2875,24 +2935,31 @@ def phase_filter_kernels(mats, widths, gen, device="cuda"):
                     return (op.bands.numel() + 2 * b * op.shape[0]) * item
             else:
                 def plain(X):
-                    return spmv_ell.ell_matvec_plain(op.data, op.cols, X)
+                    return ell_plain(op.data, op.cols, X)
 
                 def nbytes(b):
                     return ell_bytes(op, b)
             item = torch.empty((), dtype=dtype).element_size()
+            if dtype in timed:
+                r = recs[timed[dtype]] = KernelRecord(dtype)
             for b in sorted({32, 64, FILTER_TAIL, *slice_widths}):
                 X = torch.randn(b, op.shape[1], generator=gen, device=dev, dtype=dtype)
                 Y = op.matmat_rows(X)
                 r.check(f"{label} {tuple(op.shape)} b={b}", dtype, Y, plain(X))
-                if fmt is BandedOperator:
-                    # every column, bit for bit, is the single-column kernel's
-                    single = torch.stack([op.matvec(X[j]) for j in range(b)])
-                    if not torch.equal(Y, single):
-                        fail(f"{name} b={b} {dtype}: a column differs from "
-                             "the single-column kernel")
-                    del single
-                del Y
-                if b == max(slice_widths) and dtype == timed:
+                # every column, bit for bit, is the single-column kernel's
+                single = torch.stack([op.matvec(X[j]) for j in range(b)])
+                if not torch.equal(Y, single):
+                    fail(f"{label} b={b} {dtype}: a column differs from the "
+                         "single-column kernel")
+                del Y, single
+                if b == max(slice_widths) and dtype in timed:
+                    if fmt is EllOperator:
+                        n = kernels_in_calls(lambda: op.matmat_rows(X), "spmv_ell")
+                        print(f"  ell_matmat at b={b} {dtype} under the profiler: "
+                              f"{n} kernel launches in 10 calls")
+                        if not 1 <= n <= 10:
+                            fail(f"ell_matmat at b={b}: {n} kernels in 10 calls, "
+                                 "not one a call")
                     r.time(lambda: op.matmat_rows(X), lambda: plain(X),
                            library_enqueue=fmt is BandedOperator)
                     r.set_bound(nbytes(b), 2 * op.nnz * b)
@@ -4088,8 +4155,10 @@ def phase_filter_shard_kernels(mats, widths, gen, device="cuda"):
     ``spmv_dia_ext_cols:filter``) and at 46(a)'s s (``:filter_46a``):
     events, cold device time, the bound, cuSPARSE's SpMM of the window's
     CSR; ``spmv_ell_cols`` on laplace_3d(48)'s 2-rank ELL shard (the
-    rectangular column map of the halo) at 46(b)'s s in float32 and float64
-    against its plain version, timed at that s in float32.  Returns ``{record name: KernelRecord}``."""
+    rectangular column map of the halo) at 46(b)'s s in float64 and float32
+    against its plain version, every column bit for bit against the
+    single-column kernel, timed in both (``spmv_ell_cols:halo_f64``,
+    ``:halo``) the same way.  Returns ``{record name: KernelRecord}``."""
     import torch
 
     from arnoldi_tpu_torch.linop import BandedOperator, EllOperator, cast_operator
@@ -4134,36 +4203,39 @@ def phase_filter_shard_kernels(mats, widths, gen, device="cuda"):
     halo = halo_matvec_closure(EllOperator.from_scipy(A, device=dev),
                                Mesh(None, rank, MESH_RANKS, dev))
     nb = widths["46b"]
-    r = recs["spmv_ell_cols:halo"] = KernelRecord(torch.float32)
-    r.b = nb
-    for dtype in (torch.float64, torch.float32):
+    for dtype, name in ((torch.float64, "spmv_ell_cols:halo_f64"),
+                        (torch.float32, "spmv_ell_cols:halo")):
+        r = recs[name] = KernelRecord(dtype)
+        r.b = nb
         loc = cast_operator(halo.local, dtype)
         n_rows, width = loc.shape
         X = torch.randn(nb, width, generator=gen, device=dev, dtype=dtype)
+        Y = loc.matmat_rows(X)
         r.check(f"ELL shard ({n_rows}, L={loc.data.shape[1]}) x {width} b={nb}",
-                dtype, loc.matmat_rows(X),
-                spmv_ell.ell_matvec_plain(loc.data, loc.cols, X))
-        if dtype == torch.float32:
-            def kernel(data=loc.data, cols=loc.cols, X=X):
-                return spmv_ell.ell_matmat(data, cols, X)
+                dtype, Y, ell_plain(loc.data, loc.cols, X))
+        ell_columns_single(f"spmv_ell_cols halo b={nb} {dtype}", loc.data,
+                           loc.cols, X, Y)
+        del Y
 
-            def plain():
-                return spmv_ell.ell_matvec_plain(loc.data, loc.cols, X)
+        def kernel(data=loc.data, cols=loc.cols, X=X):
+            return spmv_ell.ell_matmat(data, cols, X)
 
-            r.time(kernel, plain, cold(kernel, loc.data, loc.cols, X))
-            r.set_bound(ell_bytes(loc, nb), 2 * loc.nnz * nb)
-            row0 = rank * n_rows
-            W = csr_tensor(shard_window_csr(A, row0, row0 + n_rows, halo.halo),
-                           dtype, dev)
-            XT = X.T.contiguous()
+        def plain():
+            return ell_plain(loc.data, loc.cols, X)
 
-            def library(W=W, XT=XT):
-                return W @ XT
+        r.time(kernel, plain, cold(kernel, loc.data, loc.cols, X))
+        r.set_bound(ell_bytes(loc, nb), 2 * loc.nnz * nb)
+        row0 = rank * n_rows
+        W = csr_tensor(shard_window_csr(A, row0, row0 + n_rows, halo.halo),
+                       dtype, dev)
+        XT = X.T.contiguous()
 
-            r.time_library(f"A_window_csr @ X (cuSPARSE SpMM, b={nb})", library,
-                           plain().T, cold(library, W, XT))
-            del W, XT
-        del X, loc
+        def library(W=W, XT=XT):
+            return W @ XT
+
+        r.time_library(f"A_window_csr @ X (cuSPARSE SpMM, b={nb})", library,
+                       plain().T, cold(library, W, XT))
+        del W, XT, X, loc
     sync()
     for name, rec in recs.items():
         print_time(name, rec)
@@ -4561,6 +4633,9 @@ def run_phases(mats, references, smi):
     f_extra["32"]["sweep"] = filter_sweep_split(
         as_operator(mats["laplace3d64"], dtype=torch.float64, device="cuda"),
         widths["geometry"])
+    f_extra["33"]["sweep"] = filter_sweep_split(
+        as_operator(mats["laplace3d48"], format="ell", dtype=torch.float32,
+                    device="cuda"), widths["geometry_33"])
 
     # The complex BSR path and checkpoint/resume, counted on their own.
     kernels.reset_launch_counts()

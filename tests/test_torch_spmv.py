@@ -421,3 +421,160 @@ def test_dia_shard_base0_equals_square(b):
     shard = (spmv_banded.banded_matmat_ext if b > 1 else spmv_banded.banded_matvec_ext)(
         bands, X, offsets, x_base=0)
     assert torch.equal(square, shard)
+
+
+# -- the ELL kernel's launch plan and its wrappers' lean launch path --------
+
+from arnoldi_tpu_torch.ops.kernels import spmv_ell  # noqa: E402
+
+#: hand-worked launches: (n_rows, L, b, dtype) -> (path, tile rows, group
+#: columns, columns a thread keeps, threads, grid)
+ELL_PLANS = {
+    (100_003, 25, 1, torch.float64): ("tiles", 32, 1, 1, 32, (3126, 1)),
+    (100_003, 1, 1, torch.complex128): ("tiles", 32, 1, 1, 32, (3126, 1)),
+    (100_003, 32, 1, torch.float32): ("tiles", 32, 1, 1, 32, (3126, 1)),
+    (100_003, 25, 8, torch.float64): ("groups", 64, 64, 2, 256, (1563, 1)),
+    (100_003, 25, 8, torch.complex128): ("groups", 64, 64, 2, 256, (1563, 1)),
+    (100_003, 7, 2, torch.float32): ("groups", 64, 64, 2, 64, (1563, 1)),
+    (100_003, 25, 5, torch.complex64): ("groups", 64, 64, 2, 192, (1563, 1)),
+    (100_003, 7, 3, torch.complex128): ("groups", 64, 64, 2, 128, (1563, 1)),
+    (100_003, 7, 9, torch.float32): ("groups", 64, 64, 4, 192, (1563, 1)),
+    (55_296, 7, 327, torch.float32): ("groups", 64, 64, 4, 256, (864, 6)),
+    (110_592, 7, 327, torch.float64): ("groups", 64, 64, 4, 256, (1728, 6)),
+    (110_591, 7, 64, torch.complex128): ("groups", 64, 64, 2, 256, (1728, 1)),
+    (1000, 1, 67, torch.float32): ("groups", 64, 64, 4, 256, (16, 2)),
+    (1000, 25, 67, torch.complex64): ("groups", 64, 64, 4, 256, (16, 2)),
+    (1000, 32, 327, torch.complex128): ("groups", 64, 64, 2, 256, (16, 6)),
+    (1000, 33, 1, torch.float64): ("warp", 8, 1, 1, 256, (125, 1)),
+    (1000, 33, 9, torch.float64): ("warp", 8, 8, 1, 256, (125, 1)),
+    (1001, 129, 3, torch.float64): ("warp", 8, 3, 1, 256, (126, 1)),
+    (1001, 129, 327, torch.complex64): ("warp", 8, 8, 1, 256, (126, 1)),
+}
+
+
+@pytest.mark.parametrize("shape", list(ELL_PLANS), ids=str)
+def test_ell_plan(shape):
+    plan = spmv_ell.ell_plan(*shape)
+    assert (plan.path, plan.tile_rows, plan.group_cols, plan.thread_cols,
+            plan.threads, plan.grid) == ELL_PLANS[shape]
+
+
+@pytest.mark.parametrize("L", [1, 7, 25, 32, 33, 129])
+@pytest.mark.parametrize("b", [1, 8, 9, 64, 67, 327])
+@pytest.mark.parametrize("n_rows", [1, 31, 1000, 55_297])
+def test_ell_plan_covers_every_row_and_column_once(n_rows, L, b):
+    """Walk the launch the plan describes as the kernel walks it (block
+    (tile, group), thread t: row t % tile_rows; in the group path the
+    columns of its passes, in the warp path the chunks of its row) and
+    count every (row, column) it writes: each exactly once."""
+    for dtype in (torch.float32, torch.complex128):
+        plan = spmv_ell.ell_plan(n_rows, L, b, dtype)
+        hits = np.zeros((n_rows, b), dtype=np.int64)
+        R, G, NC = plan.tile_rows, plan.group_cols, plan.thread_cols
+        if plan.path == "warp":
+            assert plan.grid[0] * R >= n_rows > (plan.grid[0] - 1) * R
+            for j0 in range(0, b, G):        # one warp a row walks the chunks
+                hits[:, j0:j0 + G] += 1
+        elif plan.path == "tiles":
+            assert plan.grid[0] * R >= n_rows > (plan.grid[0] - 1) * R
+            assert b == 1 and plan.threads == R
+            for t in range(plan.threads):     # every tile, by the persistent grid
+                hits[t::R, 0] += 1
+        else:
+            lanes = plan.threads // R
+            for ty in range(plan.grid[1]):
+                j_end = min(b, (ty + 1) * G)
+                for t in range(plan.threads):
+                    for j in range(ty * G + t // R * NC, j_end, lanes * NC):
+                        hits[t % R::R, j:min(j + NC, j_end)] += 1
+            assert plan.grid[0] * R >= n_rows > (plan.grid[0] - 1) * R
+        assert (hits == 1).all(), (plan, np.unique(hits))
+        assert plan.grid[1] == (-(-b // G) if plan.path == "groups" else 1)
+
+
+def test_ell_plan_rejects_empty_shapes():
+    for shape in ((0, 7, 1), (10, 0, 1), (10, 7, 0)):
+        with pytest.raises(ValueError, match="ell_plan"):
+            spmv_ell.ell_plan(*shape, torch.float32)
+
+
+ELL_FORMS = {
+    "spmv_ell": lambda data, cols, x: spmv_ell.ell_matvec(data, cols, x),
+    "spmv_ell_cols": lambda data, cols, x: spmv_ell.ell_matmat(data, cols,
+                                                               _two_columns(x)),
+}
+
+
+def _ell_ok(dtype=torch.float64, device="cpu"):
+    data = torch.ones(4, 3, dtype=dtype, device=device)
+    cols = torch.zeros(4, 3, dtype=torch.int32, device=device)
+    return data, cols, torch.ones(6, dtype=dtype, device=device)
+
+
+def _ell_bad(change):
+    def make():
+        data, cols, x = _ell_ok()
+        return change(data, cols, x)
+    return make
+
+
+#: bad operands -> (maker, exception, message)
+BAD_ELL_OPERANDS = {
+    "dtype": (lambda: tuple(t.half() if t.is_floating_point() else t
+                            for t in _ell_ok()), TypeError, "float32 or float64"),
+    "mixed_dtypes": (_ell_bad(lambda d, c, x: (d, c, x.float())), TypeError,
+                     "mixed dtypes"),
+    "mixed_devices": (_ell_bad(lambda d, c, x: (d, c, x.to("meta"))), ValueError,
+                      "operands on cpu and meta"),
+    "other_device": (lambda: _ell_ok(device="meta"), ValueError, "CPU or CUDA"),
+    "strided_x": (_ell_bad(lambda d, c, x: (d, c, torch.ones(12, dtype=x.dtype)[::2])),
+                  ValueError, "operands must be contiguous"),
+    "strided_data": (_ell_bad(lambda d, c, x: (torch.ones(3, 4, dtype=d.dtype).T, c, x)),
+                     ValueError, "operands must be contiguous"),
+    "cols_int64": (_ell_bad(lambda d, c, x: (d, c.long(), x)), TypeError,
+                   "cols must be int32"),
+    "cols_device": (_ell_bad(lambda d, c, x: (d, c.to("meta"), x)), ValueError,
+                    "cols on meta, operands on cpu"),
+    "cols_strided": (_ell_bad(lambda d, c, x: (
+        d, torch.zeros(3, 4, dtype=torch.int32).T, x)), ValueError,
+        "cols must be contiguous"),
+    "cols_shape": (_ell_bad(lambda d, c, x: (d, c[:, :2].contiguous(), x)),
+                   ValueError, "data"),
+    "data_1d": (_ell_bad(lambda d, c, x: (d.reshape(-1), c.reshape(-1), x)),
+                ValueError, "data"),
+}
+
+
+@pytest.mark.parametrize("form,bad", [(form, bad) for form in sorted(ELL_FORMS)
+                                      for bad in sorted(BAD_ELL_OPERANDS)])
+def test_ell_wrappers_reject_bad_operands(form, bad):
+    make, exc, match = BAD_ELL_OPERANDS[bad]
+    with pytest.raises(exc, match=match):
+        ELL_FORMS[form](*make())
+
+
+@pytest.mark.parametrize("form", sorted(ELL_FORMS))
+def test_ell_wrappers_run_the_plain_version_on_the_cpu(form):
+    data, cols, x = _ell_ok()
+    got = ELL_FORMS[form](data, cols, x)
+    assert got.shape == ((4,) if form == "spmv_ell" else (2, 4))
+    assert torch.equal(got, torch.full_like(got, 3.0))
+
+
+def test_ell_wrappers_reject_x_of_the_wrong_rank():
+    data, cols, x = _ell_ok()
+    with pytest.raises(ValueError, match="x must be"):
+        spmv_ell.ell_matvec(data, cols, torch.stack([x, x]))
+    with pytest.raises(ValueError, match="X must be"):
+        spmv_ell.ell_matmat(data, cols, x)
+
+
+@pytest.mark.parametrize("form", sorted(ELL_FORMS))
+def test_ell_wrappers_check_cols_on_a_cuda_device(form, monkeypatch):
+    """On a (faked) CUDA device the cols must lie on that device: CPU ids
+    raise before any allocation or launch."""
+    monkeypatch.setattr(_build, "operand_device", lambda kernel, a, b: 0)
+    monkeypatch.setattr(spmv_ell, "_entries", None)
+    with pytest.raises(ValueError, match="cols on cpu"):
+        ELL_FORMS[form](*_ell_ok())
+    assert spmv_ell._entries is None     # nothing was resolved or built
