@@ -9,9 +9,11 @@
 //    b-column form on 8 x 8 blocks (b >= 2) is spmv_bsr_gather8_kernel.
 //  * the window kernel replaces bsr_matvec_pallas16 (with its host packing
 //    pack_bsr16): a tile of block-rows reads x only from the window
-//    [tile_base, tile_base + Wt) block-columns, staged in shared memory.
-//    spmv_bsr_window8_kernel runs 8 x 8 blocks (the format's use),
-//    spmv_bsr_window_kernel every other shape.
+//    [tile_base, tile_base + Wt) block-columns.  On 8 x 8 blocks (the
+//    format's use) one column takes spmv_bsr_window8_kernel, which stages
+//    the window in shared memory, and b >= 2 columns the walk of
+//    spmv_bsr_gather8_kernel over the window layout (WINDOW = true);
+//    spmv_bsr_window_kernel runs every other shape.
 // Neither Pallas kernel compiled on the TPU; the JAX package runs BSR as an
 // XLA take + einsum, and its BsrOperator.matvec is the oracle of both.
 //
@@ -51,34 +53,25 @@
 // at least 287 MB (one column) or 405 MB (eight) in f64 on the banded-1024
 // matrix, 79 % and 85 % of the nonzero bound's time.
 //
-// 8 x 8 blocks take spmv_bsr_window8_kernel.  What held the first window
-// kernel (a block per tile that staged, synced, then contracted; 49 % of
-// the bound at one column and 10 % at eight on the H100) and what this
-// design does about each:
+// One column on 8 x 8 blocks takes spmv_bsr_window8_kernel.  What held the
+// first window kernel (a block per tile that staged, synced, then
+// contracted; 49 % of the bound on the H100) and what this design does
+// about each:
 //  * staging was synchronous and never overlapped: each block copied its
 //    window with plain loads (a division per element) and waited.  Now a
 //    persistent grid (the blocks that fit an SM times the SMs) walks a
-//    fixed, contiguous run of (tile, pass) items a block, and one thread
-//    copies each column's window with one cp.async.bulk (1-D TMA, counted
-//    on an mbarrier).  Where two stages fit (one column: 24.6 KB at
-//    Wt = 384 in f64) the next item's copy overlaps this item's
-//    contraction; where one does (eight columns: 197 KB) it follows it.
-//    x views whose pointer or column stride is not 16-byte aligned take
-//    4/8-byte cp.async copies instead (a fixed rule on the pointer and on
-//    n_cols * itemsize).
+//    fixed, contiguous run of tiles a block, and one thread copies the
+//    tile's window with one cp.async.bulk (1-D TMA, counted on an
+//    mbarrier).  Where two stages fit (24.6 KB at Wt = 384 in f64) the next
+//    tile's copy overlaps this tile's contraction.  x views whose pointer
+//    or length is not 16-byte aligned take 4/8-byte cp.async copies instead
+//    (a fixed rule on the pointer and on n_cols * itemsize).
 //  * too few bytes in flight: a warp loaded one 512-byte block at a time in
 //    a loop of dynamic trip count.  Now a warp requests up to 4 blocks of
 //    each of two block-rows (a half-warp each) before their FMAs: 4 KB a
 //    warp, 64-96 KB an SM.  The blocks and ids are read with the streaming
 //    hint (evict first), so that they do not push the windows, which
 //    consecutive tiles share, out of L2.
-//  * at eight columns one block of 8 warps held an SM (196 KB of windows)
-//    and each warp walked 16 block-rows in turn.  Now one pass stages every
-//    column one stage fits (8 in f64 at Wt = 384), so each block is read
-//    once for all of them (passes of 4 read the blocks twice from device
-//    memory: L2 does not keep a tile's 256 KB across 132 SMs), a warp
-//    contracts a block-row pair with 4 columns at a time, and a block runs
-//    16 warps when it holds an SM.
 //  * the window is still ~3x a tile's own span (384 block-columns for rows
 //    that reach +-128 from the diagonal); it is staged mostly from L2.  A
 //    ring that copies only the block-columns entering the window measured
@@ -89,8 +82,40 @@
 // lane does), and sums a row as reduce_write says: the tree
 // ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)) that the gather kernel's
 // shuffle-down over its 8 lanes builds.  So the window kernel gives the
-// gather kernel's bits, and every column of a pass the single-column bits.
-// Other block shapes keep the first window kernel (spmv_bsr_window_kernel).
+// gather kernel's bits.  Other block shapes keep the first window kernel
+// (spmv_bsr_window_kernel), kCols columns a pass.
+//
+// b >= 2 columns on 8 x 8 blocks: the earlier b-column form of this kernel
+// held every column's window of a tile in shared memory, so a pass
+// carried as many columns as fit 227 KB: 8 in f64 (197 KB), 4 in
+// complex128 (49,280 B a column at Wt = 384), which read the 537 MB of
+// stored blocks twice at b = 8 (L2 does not keep a tile's 512 KB across
+// 132 SMs) and copied each tile's whole window, ~3x its span, from L2.
+// Now the b-column form is the staged gather kernel's walk (below) over the
+// window layout: no window is staged, a warp copies only the 64-byte x
+// segments its step's blocks need, and 8 columns ride in registers, so
+// each block is read once for b <= 8 in every dtype and the copies of the
+// next step overlap this step's FMAs (one launch a call).  An id outside
+// its tile's window reads zero, as the staged kernel's zero block-column
+// does; the check is folded into the id load, a step ahead, and the tile's
+// clamped base is read once a block-row pair.  Measured on an NVIDIA H100
+// 80GB HBM3, 700.00 W (scripts/bsr_ab.py, banded-1024, b = 8, device ms,
+// parent and variants in turns in one call): complex128 0.3309-0.3317
+// (staged: 0.5879-0.5881; the gather kernel on the same matrix 0.3419),
+// complex64 0.1723-0.1725 (0.2030-0.2038; gather 0.1746), float64
+// 0.1599-0.1623 (0.1824-0.1832; its walk spills 40 bytes, the gather 16),
+// float32 0.0855 (0.1161-0.1169).  Variants in complex128: the base read
+// and divided (64-bit) every step 0.3746, which the 32-bit division a pair
+// took to 0.3322 (a block holds 8 warps an SM, so every instruction of a
+// step shows); no window check at all 0.3432; the tile index by a shift
+// where tile_brows is a power of two 0.3506-0.3524 (float64 0.153, the
+// other dtypes slower too); L1-cached 16-byte x copies (cp.async.ca)
+// 0.3709 against 0.3698 for the L1-bypassing ones.  Not built: a pair of
+// CTAs in a cluster, each staging 4 columns' windows (197 KB in
+// complex128) and reading the partner's through distributed shared memory
+// (it would still stage the 3x window from L2, one stage a tile), and a
+// tile's blocks staged once with passes over the windows (4 window stages
+// a tile in complex128); the walk reads each block once with neither.
 //
 // spmv_bsr_gather8_kernel (8 x 8 blocks, b >= 2 columns) is the b-column
 // gather kernel rebuilt on that layout.  What held the first one (the b
@@ -109,8 +134,8 @@
 //    they read, stay compact in L2.  Contiguous runs of pairs a block lost
 //    (0.208 against 0.157 ms: 264 bands of X live at once);
 //  * scattered scalar y stores: reduce_write, as above.
-// One pass covers up to kCols columns (more re-read the blocks), with the
-// window kernel's sum tree, so every column equals spmv_bsr's bits and the
+// One pass covers up to kGatherCols = 8 columns (more re-read the blocks),
+// with the window kernel's sum tree, so every column equals spmv_bsr's bits and the
 // window kernel's.  At b = 8 in f64: 0.148 ms on an NVIDIA H100 80GB HBM3,
 // 700.00 W (scripts/bsr_ab.py --matrix scattered), 512 threads (16 bytes of
 // spill; 384 threads, without spill, took 0.163).
@@ -124,15 +149,12 @@
 // and x segments stay 16-byte aligned (a complex64 column stride is when
 // n_cols is even, else the value-by-value copies run).  It takes twice a
 // float64 value's registers, so complex128 carries kCols = 4 columns a
-// pass in the general kernels and the 8 x 8 window kernel (Plan below),
-// and runs its multi-column 8 x 8 kernels at 256 threads: ptxas reports no
-// spill for them, nor for any window kernel (-Xptxas -v, printed by
-// chip_smoke.py phase 0).  The staged 8 x 8 gather kernel keeps 8 columns
-// (244 registers at 256 threads): 0.346 ms at b = 8 on the phased
-// scattered 2^20-row matrix, where 4 columns a pass (reading the blocks
-// twice) took 0.466 ms; the window kernel's 4 single-staged columns a pass
-// took 0.589 ms on banded-1024, 2 double-staged ones 0.934 ms
-// (scripts/bsr_ab.py --dtype complex128; NVIDIA H100 80GB HBM3, 700.00 W).
+// pass in the general kernels (Plan below), and runs the 8 x 8 walk at
+// 256 threads with 8 columns (244 registers, no spill; -Xptxas -v, printed
+// by chip_smoke.py phase 0): 0.346 ms at b = 8 on the phased scattered
+// 2^20-row matrix, where 4 columns a pass (reading the blocks twice) took
+// 0.466 ms (scripts/bsr_ab.py --dtype complex128; NVIDIA H100 80GB HBM3,
+// 700.00 W).
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -148,20 +170,18 @@ constexpr int kBarBytes = 16;             // the 8x8 window kernel's two mbarrie
 constexpr int kGatherCols = 8;            // the staged 8x8 gather kernel's columns a pass
 
 // Launch shapes by value type.  kCols: columns a warp keeps in registers
-// in the general kernels, and the most the window kernels stage a pass
-// (ops/kernels/spmv_bsr.py, cols_per_pass); the staged 8 x 8 gather
-// kernel's threads; the 8 x 8 window kernel's blocks an SM for one column
-// (256 threads), and its threads for several (4 columns a group).
+// in the general kernels, and the most the general window kernel stages a
+// pass (ops/kernels/spmv_bsr.py, cols_per_pass); the staged 8 x 8 gather
+// kernel's (and the window walk's) threads; the one-column 8 x 8 window
+// kernel's blocks an SM (256 threads).
 template <typename T>
 struct Plan {
-    static constexpr int kCols = 8, kGatherThreads = 512;
-    static constexpr int kOneBlocks = 3, kManyThreads = 512;
+    static constexpr int kCols = 8, kGatherThreads = 512, kOneBlocks = 3;
 };
 
 template <>
 struct Plan<arn::c128> {
-    static constexpr int kCols = 4, kGatherThreads = 256;
-    static constexpr int kOneBlocks = 2, kManyThreads = 256;
+    static constexpr int kCols = 4, kGatherThreads = 256, kOneBlocks = 2;
 };
 
 // The contraction of one block-row, x read through `load(j, block_col)`;
@@ -371,34 +391,28 @@ __device__ __forceinline__ void reduce_write(const T (&p)[G][4], int q, int rq,
     }
 }
 
-// Item i of a launch is (tile i / passes, pass i % passes); pass p covers
-// columns [p * per_pass, min(nb, (p + 1) * per_pass)).  Block g of G runs
-// items [g * n / G, (g + 1) * n / G): ops/kernels/spmv_bsr.py,
-// window_items, is the same plan on the host.  A staged column holds the
-// window's Wt block-columns, then a zero block-column that ids outside the
-// window read.  With two stages the next item's windows are copied while
-// this item is contracted; with one (when two do not fit), after it.  A
-// sweep loads a block-row pair's blocks once and contracts them with the
-// pass's columns G at a time (G partial sets in registers).
-template <typename T, int G, int THREADS, int MIN_BLOCKS>
+// The one-column 8 x 8 window kernel.  Block g of G runs tiles
+// [g * n / G, (g + 1) * n / G) (ops/kernels/spmv_bsr.py, window_items, is
+// the same plan on the host).  A stage holds the tile's window of Wt
+// block-columns, then a zero block-column that ids outside the window read.
+// With two stages the next tile's window is copied while this tile is
+// contracted; with one (when two do not fit), after it.
+template <typename T, int THREADS, int MIN_BLOCKS>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 spmv_bsr_window8_kernel(const T* __restrict__ blocks, const int* __restrict__ wcols,
                         const int* __restrict__ tile_base, const T* __restrict__ x,
                         T* __restrict__ y, long long n_brow, int L, long long n_rows,
-                        long long n_cols, int nb, int tile_brows, int Wt, int per_pass,
-                        int stages, long long n_tiles, int vec) {
+                        long long n_cols, int tile_brows, int Wt, int stages,
+                        long long n_tiles, int vec) {
     constexpr int kW = THREADS / 32;
     constexpr int kU = 4;                   // blocks of a row requested together
     extern __shared__ __align__(16) unsigned char smem[];
     unsigned long long* bar = reinterpret_cast<unsigned long long*>(smem);
     T* stage_mem = reinterpret_cast<T*>(smem + kBarBytes);
     const int W = Wt * 8;
-    const int CW = W + 8;                   // a staged column: window + zeros
-    const int stage_elems = per_pass * CW;
-    const int passes = (nb + per_pass - 1) / per_pass;
-    const long long items = n_tiles * passes;
-    const long long first = static_cast<long long>(blockIdx.x) * items / gridDim.x;
-    const long long last = static_cast<long long>(blockIdx.x + 1) * items / gridDim.x;
+    const int CW = W + 8;                   // a stage: window + zeros
+    const long long first = static_cast<long long>(blockIdx.x) * n_tiles / gridDim.x;
+    const long long last = static_cast<long long>(blockIdx.x + 1) * n_tiles / gridDim.x;
     // Window base clamped so the window stays inside max(n_bcol, Wt)
     // block-columns (spmv_bsr.py:224).
     const long long n_bcol = max((n_cols + 7) / 8, static_cast<long long>(Wt));
@@ -410,41 +424,34 @@ spmv_bsr_window8_kernel(const T* __restrict__ blocks, const int* __restrict__ wc
         mbar_init(bar + 1);
         asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-    for (int i = threadIdx.x; i < stages * per_pass * 8; i += THREADS)
+    for (int i = threadIdx.x; i < stages * 8; i += THREADS)
         stage_mem[(i >> 3) * CW + W + (i & 7)] = T(0);
     __syncthreads();
 
-    // Start copying item `item`'s windows (its columns' x[x0 : x0 + W],
-    // zero past n_cols) into stage s.
-    auto stage = [&](long long item, int s) {
-        const long long tile = item / passes;
-        const int j0 = static_cast<int>(item - tile * passes) * per_pass;
-        const int cnt = min(per_pass, nb - j0);
+    // Start copying tile `tile`'s window (x[x0 : x0 + W], zero past n_cols)
+    // into stage s.
+    auto stage = [&](long long tile, int s) {
         const long long x0 = base_of(tile) * 8;
         const int valid = static_cast<int>(
             max(0LL, min(static_cast<long long>(W), n_cols - x0)));
-        T* dst = stage_mem + s * stage_elems;
-        const T* src = x + static_cast<long long>(j0) * n_cols + x0;
+        T* dst = stage_mem + s * CW;
+        const T* src = x + x0;
         if (vec) {
             if (threadIdx.x == 0) {
                 // The stage was last read through the generic proxy.
                 asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-                mbar_expect_tx(bar + s, static_cast<unsigned>(cnt * valid * sizeof(T)));
+                mbar_expect_tx(bar + s, static_cast<unsigned>(valid * sizeof(T)));
                 if (valid > 0)
-                    for (int j = 0; j < cnt; ++j)
-                        bulk_copy(dst + j * CW, src + j * n_cols,
-                                  static_cast<unsigned>(valid * sizeof(T)), bar + s);
+                    bulk_copy(dst, src, static_cast<unsigned>(valid * sizeof(T)), bar + s);
             }
-            for (int j = 0; j < cnt; ++j)
-                for (int w = valid + threadIdx.x; w < W; w += THREADS) dst[j * CW + w] = T(0);
+            for (int w = valid + threadIdx.x; w < W; w += THREADS) dst[w] = T(0);
         } else {
-            for (int j = 0; j < cnt; ++j)
-                for (int w = threadIdx.x; w < W; w += THREADS) {
-                    if (w < valid)
-                        cp_async_small<sizeof(T)>(dst + j * CW + w, src + j * n_cols + w);
-                    else
-                        dst[j * CW + w] = T(0);
-                }
+            for (int w = threadIdx.x; w < W; w += THREADS) {
+                if (w < valid)
+                    cp_async_small<sizeof(T)>(dst + w, src + w);
+                else
+                    dst[w] = T(0);
+            }
         }
     };
 
@@ -456,85 +463,56 @@ spmv_bsr_window8_kernel(const T* __restrict__ blocks, const int* __restrict__ wc
     const int e0 = rq * 8 + q;
     if (first < last) stage(first, 0);
     cp_async_commit();
-    for (long long it = first; it < last; ++it) {
-        const int k = static_cast<int>(it - first);
+    for (long long tile = first; tile < last; ++tile) {
+        const int k = static_cast<int>(tile - first);
         const int s = stages == 2 ? k & 1 : 0;
         if (stages == 2) {
-            if (it + 1 < last) stage(it + 1, s ^ 1);
+            if (tile + 1 < last) stage(tile + 1, s ^ 1);
             cp_async_commit();
-            cp_async_wait_prev();               // this thread's copies of `it` landed
+            cp_async_wait_prev();               // this thread's copies of `tile` landed
         } else {
             cp_async_wait_all();
         }
-        const long long tile = it / passes;
-        const int j0 = static_cast<int>(it - tile * passes) * per_pass;
-        const int cnt = min(per_pass, nb - j0);
         const long long base = base_of(tile);
-        const T* xs = stage_mem + s * stage_elems + q;
-        T* yj = y + static_cast<long long>(j0) * n_rows;
+        const T* xs = stage_mem + s * CW + q;
         const long long row_end = min((tile + 1) * tile_brows, n_brow);
-        T bv[kU][4];
-        int off[kU];
-        // Request slots [l0, l0 + kU) of block-row brow: every block in
-        // flight before the first FMA.
-        auto load = [&](long long brow, bool live, int l0) {
-#pragma unroll
-            for (int u = 0; u < kU; ++u) {
-                const bool ok = live && l0 + u < L;
-                const long long slot = brow * L + l0 + u;
-                const long long w = ok ? __ldcs(wcols + slot) - base : -1;
-                off[u] = (w >= 0 && w < Wt) ? static_cast<int>(w) * 8 : W;
-                const T* blk = blocks + slot * 64 + e0;
-#pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    bv[u][e] = ok ? arn::ldcs(blk + (e & 1) * 4 + (e >> 1) * 32) : T(0);
-            }
-        };
-        if (vec) mbar_wait(bar + s, (stages == 2 ? k >> 1 : k) & 1);   // the bulk copies
+        if (vec) mbar_wait(bar + s, (stages == 2 ? k >> 1 : k) & 1);   // the bulk copy
         __syncthreads();                        // and everyone else's
         for (long long b0 = tile * tile_brows + 2 * warp; b0 < row_end; b0 += 2 * kW) {
             const long long brow = b0 + h;
             const bool live = brow < row_end;   // per half-warp: no early exit
-            // FMAs of the loaded slots with columns [g0, g0 + G), slots in
-            // ascending order.
-            auto contract = [&](int l0, int g0, T (&p)[G][4]) {
+            T p[1][4] = {{T(0), T(0), T(0), T(0)}};
+            // Slots [l0, l0 + kU) of the block-row: every block in flight
+            // before the first FMA, slots in ascending order.
+            for (int l0 = 0; l0 < L; l0 += kU) {
+                T bv[kU][4];
+                int off[kU];
+#pragma unroll
+                for (int u = 0; u < kU; ++u) {
+                    const bool ok = live && l0 + u < L;
+                    const long long slot = brow * L + l0 + u;
+                    const long long w = ok ? __ldcs(wcols + slot) - base : -1;
+                    off[u] = (w >= 0 && w < Wt) ? static_cast<int>(w) * 8 : W;
+                    const T* blk = blocks + slot * 64 + e0;
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        bv[u][e] = ok ? arn::ldcs(blk + (e & 1) * 4 + (e >> 1) * 32) : T(0);
+                }
 #pragma unroll
                 for (int u = 0; u < kU; ++u) {
                     if (l0 + u >= L) break;     // the same in the whole warp
-#pragma unroll
-                    for (int j = 0; j < G; ++j) {
-                        if (g0 + j < cnt) {
-                            const T* xj = xs + (g0 + j) * CW + off[u];
-                            const T x_q = xj[0], x_q4 = xj[4];
-                            p[j][0] = arn::fma_rn(bv[u][0], x_q, p[j][0]);
-                            p[j][1] = arn::fma_rn(bv[u][1], x_q4, p[j][1]);
-                            p[j][2] = arn::fma_rn(bv[u][2], x_q, p[j][2]);
-                            p[j][3] = arn::fma_rn(bv[u][3], x_q4, p[j][3]);
-                        }
-                    }
+                    const T x_q = xs[off[u]], x_q4 = xs[off[u] + 4];
+                    p[0][0] = arn::fma_rn(bv[u][0], x_q, p[0][0]);
+                    p[0][1] = arn::fma_rn(bv[u][1], x_q4, p[0][1]);
+                    p[0][2] = arn::fma_rn(bv[u][2], x_q, p[0][2]);
+                    p[0][3] = arn::fma_rn(bv[u][3], x_q4, p[0][3]);
                 }
-            };
-            if (L <= kU) load(brow, live, 0);   // once for every group
-            for (int g0 = 0; g0 < cnt; g0 += G) {
-                T p[G][4];
-#pragma unroll
-                for (int j = 0; j < G; ++j)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) p[j][e] = T(0);
-                if (L <= kU) {
-                    contract(0, g0, p);
-                } else {
-                    for (int l0 = 0; l0 < L; l0 += kU) {
-                        load(brow, live, l0);
-                        contract(l0, g0, p);
-                    }
-                }
-                reduce_write<T, G>(p, q, rq, brow, live, cnt - g0, yj + g0 * n_rows, n_rows);
             }
+            reduce_write<T, 1>(p, q, rq, brow, live, 1, y, n_rows);
         }
         __syncthreads();                        // the stage is read out before it is refilled
-        if (stages == 1 && it + 1 < last) {
-            stage(it + 1, 0);
+        if (stages == 1 && tile + 1 < last) {
+            stage(tile + 1, 0);
             cp_async_commit();
         }
     }
@@ -565,11 +543,18 @@ __device__ __forceinline__ void cp_async_zfill(void* dst, const void* src, bool 
 // with cp.async, loads the blocks into registers (evict first), loads the
 // next step's ids, and contracts once both have landed; the last chunk of
 // a pass finishes its rows with reduce_write.
-template <typename T, int G, int THREADS, int MIN_BLOCKS>
+// WINDOW: the window kernel's walk (its b-column form on 8 x 8 blocks,
+// where the wrapper's plan takes it): the ids are the window layout's, and
+// an id outside its tile's window [base, base + Wt) (base clamped as the
+// staged kernel clamps it) reads zero, as the staged kernel's zero
+// block-column does.  The check is made where the ids are loaded, a step
+// ahead.
+template <typename T, int G, int THREADS, int MIN_BLOCKS, bool WINDOW>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 spmv_bsr_gather8_kernel(const T* __restrict__ blocks, const int* __restrict__ cols,
                         const T* __restrict__ x, T* __restrict__ y, long long n_brow,
-                        int L, long long n_rows, long long n_cols, int nb, int vec) {
+                        int L, long long n_rows, long long n_cols, int nb, int vec,
+                        const int* __restrict__ tile_base, int tile_brows, int Wt) {
     constexpr int kW = THREADS / 32;
     constexpr int kU = 4;                   // slots of a block-row a step
     constexpr int kV = 16 / sizeof(T);      // values of one 16-byte copy
@@ -593,14 +578,26 @@ spmv_bsr_gather8_kernel(const T* __restrict__ blocks, const int* __restrict__ co
         l0 = (r - pass * chunks) * kU;
         brow = 2 * pair + h;
     };
+    // The window's base, clamped so that it stays inside max(n_bcol, Wt)
+    // block-columns (spmv_bsr.py:224): read when load_ids starts a pair.
+    const long long base_max = max((n_cols + 7) / 8, static_cast<long long>(Wt)) - Wt;
+    long long base = 0;
     auto load_ids = [&](long long pair, int r, int (&id)[kU]) {
         long long brow;
         int j0, l0;
         where(pair, r, brow, j0, l0);
         const bool live = pair < n_pairs && brow < n_brow;
+        if constexpr (WINDOW)
+            if (r == 0 && live)
+                base = min(max(static_cast<long long>(
+                                   tile_base[static_cast<int>(brow) / tile_brows]), 0LL),
+                           base_max);
 #pragma unroll
-        for (int u = 0; u < kU; ++u)
+        for (int u = 0; u < kU; ++u) {
             id[u] = live && l0 + u < L ? __ldcs(cols + brow * L + l0 + u) : -1;
+            if constexpr (WINDOW)
+                if (id[u] - base < 0 || id[u] - base >= Wt) id[u] = -1;
+        }
     };
 
     int id[kU], nid[kU];
@@ -700,20 +697,17 @@ spmv_bsr_gather8_kernel(const T* __restrict__ blocks, const int* __restrict__ co
     }
 }
 
-// Stages: two when two stages of per_pass columns fit (the next item's
-// copy overlaps this item), else one.  Threads: a one-column pass runs 8
-// warps (several blocks share an SM); more columns take 16 warps, since
-// their stages fill most of an SM.  Both are fixed rules on the shapes.
-template <typename T, int G, int THREADS, int MIN_BLOCKS>
+// Stages: two when two of the window's stages fit (the next tile's copy
+// overlaps this tile), else one: a fixed rule on the shapes.
+template <typename T, int THREADS, int MIN_BLOCKS>
 int launch_window8_n(const T* blocks, const int* wcols, const int* tile_base,
                      const T* x, T* y, long long n_brow, int L, long long n_rows,
-                     long long n_cols, int nb, int tile_brows, int Wt, int per_pass,
-                     cudaStream_t s) {
-    auto kernel = spmv_bsr_window8_kernel<T, G, THREADS, MIN_BLOCKS>;
+                     long long n_cols, int tile_brows, int Wt, cudaStream_t s) {
+    auto kernel = spmv_bsr_window8_kernel<T, THREADS, MIN_BLOCKS>;
     static const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (attr != cudaSuccess) return static_cast<int>(attr);
-    const size_t stage = static_cast<size_t>(per_pass) * (Wt + 1) * 8 * sizeof(T);
+    const size_t stage = static_cast<size_t>(Wt + 1) * 8 * sizeof(T);
     const int stages = kBarBytes + 2 * stage <= kMaxSmem ? 2 : 1;
     const size_t smem = kBarBytes + stages * stage;
     // Blocks that fit an SM, per instantiation and started KB of shared
@@ -729,31 +723,15 @@ int launch_window8_n(const T* blocks, const int* wcols, const int* tile_base,
     const int n_sm = arn::sm_count();
     if (n_sm < 1) return static_cast<int>(cudaErrorInvalidDevice);
     const long long n_tiles = (n_brow + tile_brows - 1) / tile_brows;
-    const long long items = n_tiles * ((nb + per_pass - 1) / per_pass);
     const unsigned grid = static_cast<unsigned>(
-        std::min(items, static_cast<long long>(per_sm[kb]) * n_sm));
-    // Bulk copies need 16-byte aligned windows: every column's start (the
-    // pointer and the column stride) and x0 (a multiple of 8 values).
+        std::min(n_tiles, static_cast<long long>(per_sm[kb]) * n_sm));
+    // Bulk copies need 16-byte aligned windows and lengths: x's pointer, x0
+    // (a multiple of 8 values) and the last window's end, n_cols.
     const int vec = reinterpret_cast<size_t>(x) % 16 == 0
                     && (n_cols * static_cast<long long>(sizeof(T))) % 16 == 0;
     kernel<<<grid, THREADS, smem, s>>>(blocks, wcols, tile_base, x, y, n_brow, L, n_rows,
-                                       n_cols, nb, tile_brows, Wt, per_pass, stages,
-                                       n_tiles, vec);
+                                       n_cols, tile_brows, Wt, stages, n_tiles, vec);
     return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int launch_window8(const T* blocks, const int* wcols, const int* tile_base, const T* x,
-                   T* y, long long n_brow, int L, long long n_rows, long long n_cols,
-                   int nb, int tile_brows, int Wt, int per_pass, cudaStream_t s) {
-    using P = Plan<T>;
-    if (per_pass == 1)
-        return launch_window8_n<T, 1, 256, P::kOneBlocks>(
-            blocks, wcols, tile_base, x, y, n_brow, L, n_rows, n_cols, nb, tile_brows, Wt,
-            1, s);
-    return launch_window8_n<T, 4, P::kManyThreads, 1>(blocks, wcols, tile_base, x, y, n_brow,
-                                                      L, n_rows, n_cols, nb, tile_brows, Wt,
-                                                      per_pass, s);
 }
 
 bool valid_block(int r, int c) {
@@ -769,10 +747,13 @@ int k_of(int r, int c) {
 // an SM (cached per instantiation) times the SMs, at most one warp a pair.
 // 16-byte copies need X's pointer and row stride 16-byte aligned (block
 // columns start at multiples of 8 values); other views copy value by value.
-template <typename T, int G, int THREADS, int MIN_BLOCKS>
+// WINDOW: the window kernel's walk (tile_base, tile_brows and Wt are the
+// window layout's; the gather passes nullptr, 1, 1).
+template <typename T, int G, int THREADS, int MIN_BLOCKS, bool WINDOW>
 int launch_gather8_n(const T* blocks, const int* cols, const T* x, T* y, long long n_brow,
-                     int L, long long n_rows, long long n_cols, int nb, cudaStream_t s) {
-    auto kernel = spmv_bsr_gather8_kernel<T, G, THREADS, MIN_BLOCKS>;
+                     int L, long long n_rows, long long n_cols, int nb, cudaStream_t s,
+                     const int* tile_base, int tile_brows, int Wt) {
+    auto kernel = spmv_bsr_gather8_kernel<T, G, THREADS, MIN_BLOCKS, WINDOW>;
     constexpr int kW = THREADS / 32;
     constexpr size_t smem = kW * 2 * (4 * G * 8 + 32 / sizeof(T)) * sizeof(T);
     static const cudaError_t attr = cudaFuncSetAttribute(
@@ -792,7 +773,8 @@ int launch_gather8_n(const T* blocks, const int* cols, const T* x, T* y, long lo
         std::min((n_pairs + kW - 1) / kW, static_cast<long long>(per_sm) * n_sm));
     const int vec = reinterpret_cast<size_t>(x) % 16 == 0
                     && (n_cols * static_cast<long long>(sizeof(T))) % 16 == 0;
-    kernel<<<grid, THREADS, smem, s>>>(blocks, cols, x, y, n_brow, L, n_rows, n_cols, nb, vec);
+    kernel<<<grid, THREADS, smem, s>>>(blocks, cols, x, y, n_brow, L, n_rows, n_cols, nb, vec,
+                                       tile_base, tile_brows, Wt);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -824,8 +806,8 @@ int launch_gather(const T* blocks, const int* cols, const T* x, T* y,
     // 8 x 8 blocks at b >= 2 take the staged gather kernel; every other
     // shape, and every single column, the first gather kernel.
     if (r == 8 && c == 8 && nb >= 2)
-        return launch_gather8_n<T, kGatherCols, Plan<T>::kGatherThreads, 1>(
-            blocks, cols, x, y, n_brow, L, n_rows, n_cols, nb, s);
+        return launch_gather8_n<T, kGatherCols, Plan<T>::kGatherThreads, 1, false>(
+            blocks, cols, x, y, n_brow, L, n_rows, n_cols, nb, s, nullptr, 1, 1);
     switch (k_of(r, c)) {
         case 1: return launch_gather_k<T, 1>(blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb, s);
         case 2: return launch_gather_k<T, 2>(blocks, cols, x, y, n_brow, L, r, c, n_rows, n_cols, nb, s);
@@ -871,21 +853,28 @@ int launch_window(const T* blocks, const int* wcols, const int* tile_base,
                   const T* x, T* y, long long n_brow, int L, int r, int c,
                   long long n_rows, long long n_cols, int nb, int tile_brows,
                   int Wt, int per_pass, void* stream) {
-    // 8 x 8 blocks take the staged kernel (one or two stages of per_pass
-    // windows, each with a zero block-column), every other shape the first
-    // window kernel (one stage of per_pass windows).
+    // 8 x 8 blocks: b >= 2 columns take the walk, which stages no window,
+    // and one column the staged kernel (one or two stages of its window and
+    // a zero block-column); per_pass is not read (ops/kernels/spmv_bsr.py,
+    // window_plan, is the rule).  Every other shape takes the first window
+    // kernel (one stage of per_pass windows).
     const bool eight = r == 8 && c == 8;
+    const bool walk = eight && nb >= 2;
     const long long smem = eight
-        ? static_cast<long long>(per_pass) * (Wt + 1) * c * sizeof(T) + kBarBytes
+        ? static_cast<long long>(Wt + 1) * c * sizeof(T) + kBarBytes
         : static_cast<long long>(per_pass) * Wt * c * sizeof(T);
-    if (n_brow < 0 || L < 1 || nb < 1 || !valid_block(r, c) || tile_brows < 1
-        || Wt < 1 || per_pass < 1 || per_pass > Plan<T>::kCols || smem > kMaxSmem)
+    if (n_brow < 0 || L < 1 || nb < 1 || !valid_block(r, c) || tile_brows < 1 || Wt < 1
+        || (!eight && (per_pass < 1 || per_pass > Plan<T>::kCols))
+        || (!walk && smem > kMaxSmem))
         return static_cast<int>(cudaErrorInvalidValue);
     if (n_brow == 0 || n_rows == 0) return 0;
     const auto s = static_cast<cudaStream_t>(stream);
+    if (walk)
+        return launch_gather8_n<T, kGatherCols, Plan<T>::kGatherThreads, 1, true>(
+            blocks, wcols, x, y, n_brow, L, n_rows, n_cols, nb, s, tile_base, tile_brows, Wt);
     if (eight)
-        return launch_window8<T>(blocks, wcols, tile_base, x, y, n_brow, L, n_rows, n_cols,
-                                 nb, tile_brows, Wt, per_pass, s);
+        return launch_window8_n<T, 256, Plan<T>::kOneBlocks>(
+            blocks, wcols, tile_base, x, y, n_brow, L, n_rows, n_cols, tile_brows, Wt, s);
     switch (k_of(r, c)) {
         case 1: return launch_window_k<T, 1>(blocks, wcols, tile_base, x, y, n_brow, L, r, c, n_rows, n_cols, nb, tile_brows, Wt, per_pass, s);
         case 2: return launch_window_k<T, 2>(blocks, wcols, tile_base, x, y, n_brow, L, r, c, n_rows, n_cols, nb, tile_brows, Wt, per_pass, s);

@@ -49,6 +49,7 @@ def reset_launch_counts():
         wrapper.launches = 0
         wrapper.dtype_launches = {}
     spmv_bsr.bsr_matmat.gather8_launches = 0
+    spmv_bsr.bsr_window_matmat.walk_launches = 0
 
 
 def launch_counts():

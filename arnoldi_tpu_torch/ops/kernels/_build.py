@@ -53,7 +53,8 @@ _SIGNATURES = {
     "arn_spmv_bsr": [_p, _p, _p, _p, _i64, _i32, _i32, _i32, _i64, _i64, _i32,
                      _p],
     # blocks, window cols, tile_base, x, y, n_brow, L, r, c, n_rows, n_cols,
-    # nb, tile_brows, Wt, columns per pass, stream
+    # nb, tile_brows, Wt, columns per pass (block shapes other than 8 x 8),
+    # stream
     "arn_spmv_bsr_window": [_p, _p, _p, _p, _p, _i64, _i32, _i32, _i32, _i64,
                             _i64, _i32, _i32, _i32, _i32, _p],
     # Vt, w, c, partials, ticket, n, mp1, n_active, chunk, n_chunks, stream

@@ -10,25 +10,34 @@ Counterpart of ``arnoldi_tpu/ops/pallas/spmv_bsr.py``, both of its kernels:
   :func:`gather8_steps` its persistent grid's walk);
 * the window kernel (``bsr_matvec_pallas16`` with ``pack_bsr16``):
   :func:`bsr_window_matvec` and :func:`bsr_window_matmat` let each tile of
-  block-rows read x only from a window of block-columns, staged in shared
-  memory.  :func:`pack_bsr_window` computes the windows on the host;
-  :func:`window_cols_per_pass`, :func:`window_stages` and
-  :func:`window_items` are the launch's plan (the columns a pass stages,
-  whether the next item's copy overlaps this one, and the run of (tile,
-  pass) items each thread block of the persistent grid walks).
+  block-rows read x only from a window of block-columns (an id outside it
+  reads zero).  :func:`pack_bsr_window` computes the windows on the host;
+  :func:`window_plan` is the launch.  On 8 x 8 blocks one column stages
+  each tile's window in shared memory (:func:`window_stages`,
+  :func:`window_items`), and b >= 2 columns take the walk: the staged 8 x
+  8 gather kernel's walk (:func:`gather8_steps`) over the window layout,
+  which copies only the x segments its blocks need and reads each block
+  once for 8 columns.  Other block shapes stage :func:`window_cols_per_pass`
+  columns' windows a pass.
 
 On CUDA tensors the wrappers launch ``csrc/spmv_bsr.cu``; on CPU tensors
 they run :func:`bsr_matvec_plain` and :func:`bsr_window_matvec_plain`.  The
 kernels take blocks whose column count ``c`` divides 32 and with at most
 256 values (8 x 8 is the format's use); other block shapes raise on the
 card.  Values may be float32, float64, complex64 or complex128; the product
-is ``blocks @ x`` with no conjugate in every dtype.  In complex128 the
-window kernel and the general gather kernel carry :func:`cols_per_pass` =
-4 columns a pass (the others 8), so that their sums fit the registers; the
-staged 8 x 8 gather kernel keeps 8 in every dtype.
+is ``blocks @ x`` with no conjugate in every dtype.  On other block shapes
+than 8 x 8, complex128 carries :func:`cols_per_pass` = 4 columns a pass
+(the others 8), so that the sums fit the registers; the 8 x 8 b-column
+kernels keep 8 in every dtype.
+
+Every wrapper takes the lean launch path of ``spmv_banded.py``: the C entry
+points are resolved once, the operands are checked by plain attribute
+compares (:func:`_build.operand_device`) and the stream handle is read raw
+(:func:`_build.launch`).
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -43,12 +52,15 @@ WINDOW_TILE_BROWS = 128
 WINDOW_BUDGET_BYTES = 64 * 1024
 #: Dynamic shared memory one thread block may use on sm_90 (227 KB).
 MAX_SHARED_BYTES = 232448
-#: Columns a warp keeps in registers in the b-column forms (Plan::kCols in
-#: the CUDA source); the window kernel stages at most this many per pass.
-#: Complex128 takes half as many (:func:`cols_per_pass`).
+#: Columns a warp keeps in registers in the b-column forms: a pass of the
+#: 8 x 8 kernels in every dtype; on other block shapes Plan::kCols in the
+#: CUDA source, half as many in complex128 (:func:`cols_per_pass`).
 MAX_COLS_PER_PASS = 8
-#: Shared memory the window kernel keeps beside its stages (two mbarriers).
+#: Shared memory the 8 x 8 window kernel keeps beside its stages (two
+#: mbarriers).
 _BARRIER_BYTES = 16
+
+_entries = {}   # {C entry point name: {dtype: entry point}}, resolved on first use
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,56 +133,104 @@ def bsr_window(blocks, block_cols, *, device, tile_brows=WINDOW_TILE_BROWS):
 
 
 def cols_per_pass(dtype):
-    """Columns the window kernel stages a pass at most, and the general
-    gather kernel keeps in registers, by value dtype: :data:`MAX_COLS_PER_PASS`
-    (8), and 4 in complex128, whose values take twice a float64 value's
-    registers (``Plan::kCols`` in the CUDA source)."""
+    """Columns the general kernels (block shapes other than 8 x 8) keep in
+    registers a pass, and the general window kernel stages at most, by
+    value dtype: :data:`MAX_COLS_PER_PASS` (8), and 4 in complex128, whose
+    values take twice a float64 value's registers (``Plan::kCols`` in the
+    CUDA source)."""
     return MAX_COLS_PER_PASS // 2 if dtype == torch.complex128 else MAX_COLS_PER_PASS
 
 
 def window_cols_per_pass(nb, col_bytes, max_cols=MAX_COLS_PER_PASS):
-    """Columns the window kernel stages a pass, for ``nb`` columns that
-    take ``col_bytes`` each in a stage (the window and one zero
-    block-column): as many as one stage fits in :data:`MAX_SHARED_BYTES`,
-    at most ``max_cols`` (:func:`cols_per_pass` of the dtype), so that
-    each block is read once for as many columns as can be; 0 when not even
-    one column fits.  Complex128 at Wt = 384 stages 49,280 B a column:
-    b = 8 runs as 2 single-staged passes of 4 columns."""
+    """Columns the general window kernel (block shapes other than 8 x 8)
+    stages a pass, for ``nb`` columns that take ``col_bytes`` each (the
+    window and one block-column): as many as one stage fits in
+    :data:`MAX_SHARED_BYTES`, at most ``max_cols`` (:func:`cols_per_pass`
+    of the dtype); 0 when not even one column fits."""
     return min(nb, max_cols, (MAX_SHARED_BYTES - _BARRIER_BYTES) // col_bytes)
 
 
-def window_stages(per_pass, col_bytes):
-    """Stages of the window kernel's 8 x 8 path: 2 (the next item's
-    windows copied while this item is contracted) when two stages of
-    ``per_pass`` columns fit, else 1."""
-    fits = _BARRIER_BYTES + 2 * per_pass * col_bytes <= MAX_SHARED_BYTES
-    return 2 if fits else 1
+def window_stages(col_bytes):
+    """Stages of the one-column 8 x 8 window kernel, whose stage takes
+    ``col_bytes`` (the window and one zero block-column): 2 (the next
+    tile's window copied while this tile is contracted) when two fit, else
+    1."""
+    return 2 if _BARRIER_BYTES + 2 * col_bytes <= MAX_SHARED_BYTES else 1
 
 
-def window_items(n_tiles, nb, per_pass, n_blocks):
-    """The window kernel's plan: for each of ``n_blocks`` thread blocks of
-    the persistent grid, the list of ``(tile, first column, columns)`` it
-    stages and contracts, in order.  Item i is tile ``i // passes``, pass
-    ``i % passes``; block g takes items ``[g*n // G, (g+1)*n // G)``, so the
-    passes of a tile run back to back, mostly in one block (the arithmetic
-    of ``spmv_bsr_window8_kernel``)."""
-    passes = -(-nb // per_pass)
-    n = n_tiles * passes
-    plan = []
-    for g in range(n_blocks):
-        run = []
-        for i in range(g * n // n_blocks, (g + 1) * n // n_blocks):
-            tile, p = divmod(i, passes)
-            j0 = p * per_pass
-            run.append((tile, j0, min(per_pass, nb - j0)))
-        plan.append(run)
-    return plan
+def window_items(n_tiles, n_blocks):
+    """The one-column 8 x 8 window kernel's plan: for each of ``n_blocks``
+    thread blocks of the persistent grid, the tiles it stages and
+    contracts, in order: block g takes tiles ``[g*n // G, (g+1)*n // G)``
+    (the arithmetic of ``spmv_bsr_window8_kernel``)."""
+    return [list(range(g * n_tiles // n_blocks, (g + 1) * n_tiles // n_blocks))
+            for g in range(n_blocks)]
+
+
+def gather8_threads(dtype):
+    """Threads a block of the staged 8 x 8 gather kernel (and of the
+    window walk) runs: 256 in complex128, 512 otherwise
+    (``Plan::kGatherThreads``)."""
+    return 256 if dtype == torch.complex128 else 512
+
+
+def gather8_shared_bytes(dtype):
+    """Shared memory a block of the staged 8 x 8 gather kernel (and of the
+    window walk) takes: each half-warp's slice of 4 slots x 8 columns x 8
+    x values, plus 32 bytes that put the half-warps on other banks."""
+    item = dtype.itemsize
+    warps = gather8_threads(dtype) // 32
+    return warps * 2 * (4 * MAX_COLS_PER_PASS * 8 + 32 // item) * item
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowPlan:
+    """One launch of the window wrapper (:func:`window_plan`).
+
+    ``path``: ``"walk"`` (8 x 8 blocks, b >= 2: no window staged, the
+    staged gather kernel's walk, :func:`gather8_steps`, over the window
+    layout), ``"staged"`` (8 x 8, one column: its window staged a tile, in
+    ``stages`` stages, :func:`window_items`) or ``"general"`` (other block
+    shapes: ``cols_per_pass`` columns' windows staged a pass, one stage);
+    ``passes``: the passes over the columns, each reading every block
+    once; ``threads`` and ``shared_bytes``: a thread block's.
+    """
+
+    path: str
+    cols_per_pass: int
+    passes: int
+    stages: int
+    threads: int
+    shared_bytes: int
+
+
+@functools.lru_cache(maxsize=64)
+def window_plan(r, c, nb, width, dtype):
+    """The launch :func:`bsr_window_matvec` (``nb = 1``) or
+    :func:`bsr_window_matmat` makes for ``r x c`` blocks, a window of
+    ``width`` block-columns and ``nb`` columns of ``dtype`` (cached: the
+    wrapper asks on every call).  ``cols_per_pass`` is 0 when not even one
+    column's window fits shared memory (the wrapper refuses it)."""
+    if uses_gather8(r, c, nb):
+        return WindowPlan("walk", MAX_COLS_PER_PASS, -(-nb // MAX_COLS_PER_PASS),
+                          0, gather8_threads(dtype), gather8_shared_bytes(dtype))
+    col_bytes = (width + 1) * c * dtype.itemsize
+    if r == 8 and c == 8:
+        fits = int(_BARRIER_BYTES + col_bytes <= MAX_SHARED_BYTES)
+        stages = window_stages(col_bytes)
+        return WindowPlan("staged", fits, 1, stages, 256,
+                          _BARRIER_BYTES + stages * col_bytes)
+    per_pass = window_cols_per_pass(nb, col_bytes, cols_per_pass(dtype))
+    return WindowPlan("general", per_pass, -(-nb // max(per_pass, 1)), 1, 256,
+                      per_pass * width * c * dtype.itemsize)
 
 
 def uses_gather8(r, c, nb):
-    """True when the gather wrapper's launch takes the staged 8 x 8 kernel
-    (``spmv_bsr_gather8_kernel``): 8 x 8 blocks and at least two columns.
-    One column, and every other block shape, take ``spmv_bsr_kernel``."""
+    """True when a b-column launch takes the 8 x 8 walk: the gather
+    wrapper's the staged 8 x 8 kernel (``spmv_bsr_gather8_kernel``), the
+    window wrapper's the same kernel over the window layout.  8 x 8 blocks
+    and at least two columns; one column, and every other block shape,
+    take the other kernels."""
     return r == 8 and c == 8 and nb >= 2
 
 
@@ -180,7 +240,9 @@ def gather8_steps(n_brow, L, nb, n_warps):
     first slot)`` steps it takes, in order.  Warp w takes the pairs w,
     w + n_warps, ...; a pair's steps are its passes of at most
     :data:`MAX_COLS_PER_PASS` columns (in every dtype), each over its slots
-    4 at a time (the arithmetic of ``spmv_bsr_gather8_kernel``)."""
+    4 at a time (the arithmetic of ``spmv_bsr_gather8_kernel``).  The
+    window wrapper's walk takes the same steps over the window layout's
+    ids."""
     n_pairs = -(-n_brow // 2)
     G, U = MAX_COLS_PER_PASS, 4
     plan = []
@@ -240,10 +302,24 @@ def bsr_window_matvec_plain(blocks, window, x, n_rows):
     return _contract(blocks, xg, n_rows)
 
 
+def _entry(name, dtype):
+    """The C entry point ``name`` for ``dtype``, resolved once a name."""
+    fns = _entries.get(name)
+    if fns is None:
+        fns = _entries[name] = _build.entry_points(name)
+    return fns[dtype]
+
+
+def _on(t, device):
+    """True when ``t`` lies on the operands' device (an index, -1: CPU)."""
+    return (t.is_cuda and t.get_device() == device) if device >= 0 else t.is_cpu
+
+
 def _check(kernel, blocks, cols, x, n_rows):
-    cuda = _build.on_cuda(kernel, blocks, x)
-    if cols.dtype != torch.int32 or cols.device != blocks.device \
-            or not cols.is_contiguous():
+    """The wrappers' checks; returns the CUDA device index (launch the
+    kernel) or -1 (CPU tensors: run the plain version)."""
+    device = _build.operand_device(kernel, blocks, x)
+    if cols.dtype != torch.int32 or not _on(cols, device) or not cols.is_contiguous():
         raise TypeError(f"{kernel}: block ids must be contiguous int32 on the "
                         "operands' device")
     if blocks.ndim != 4 or cols.shape != blocks.shape[:2] \
@@ -251,66 +327,66 @@ def _check(kernel, blocks, cols, x, n_rows):
         raise ValueError(f"{kernel}: blocks {tuple(blocks.shape)}, ids "
                          f"{tuple(cols.shape)}, x {tuple(x.shape)}, "
                          f"n_rows={n_rows}")
-    if cuda:
+    if device >= 0:
         r, c = blocks.shape[2:]
         if c > 32 or c & (c - 1) or r * c > 256:
             raise ValueError(f"{kernel}: the kernel takes blocks whose column "
                              f"count divides 32 with at most 256 values, got "
                              f"{r} x {c}")
-    return cuda
+    return device
 
 
 def _out(blocks, x, n_rows):
-    return torch.empty((*x.shape[:-1], n_rows), dtype=blocks.dtype,
-                       device=blocks.device)
+    return blocks.new_empty((*x.shape[:-1], n_rows))
 
 
 def _gather(kernel, wrapper, blocks, cols, x, n_rows):
     n_rows = int(n_rows)
-    if not _check(kernel, blocks, cols, x, n_rows):
+    device = _check(kernel, blocks, cols, x, n_rows)
+    if device < 0:
         return bsr_matvec_plain(blocks, cols, x, n_rows)
     n_brow, L, r, c = blocks.shape
     y = _out(blocks, x, n_rows)
     nb = x.shape[0] if x.ndim == 2 else 1
-    fn = _build.kernel_fn("arn_spmv_bsr", blocks.dtype)
-    guard, stream = _build.launch_context(blocks.device)
-    with guard:
-        rc = fn(blocks.data_ptr(), cols.data_ptr(), x.data_ptr(), y.data_ptr(),
-                n_brow, L, r, c, n_rows, x.shape[-1], nb, stream)
-    _build.check(rc, kernel)
+    rc = _build.launch(_entry("arn_spmv_bsr", blocks.dtype), device, blocks.data_ptr(),
+                       cols.data_ptr(), x.data_ptr(), y.data_ptr(), n_brow, L, r, c,
+                       n_rows, x.shape[-1], nb)
+    if rc:
+        _build.check(rc, kernel)
     _build.count_launch(wrapper, blocks.dtype)
     if uses_gather8(r, c, nb):
         wrapper.gather8_launches += 1
     return y
 
 
-def _windowed(kernel, wrapper, blocks, window, x, n_rows, per_pass=None):
+def _windowed(kernel, wrapper, blocks, window, x, n_rows):
     n_rows = int(n_rows)
-    if not _check(kernel, blocks, window.cols, x, n_rows):
+    device = _check(kernel, blocks, window.cols, x, n_rows)
+    if device < 0:
         return bsr_window_matvec_plain(blocks, window, x, n_rows)
     n_brow, L, r, c = blocks.shape
     tiles = -(-n_brow // window.tile_brows)
-    if window.tile_base.dtype != torch.int32 or window.tile_base.shape != (tiles,) \
-            or window.tile_base.device != blocks.device:
+    base = window.tile_base
+    if base.dtype != torch.int32 or base.shape != (tiles,) or not _on(base, device):
         raise ValueError(f"{kernel}: tile_base must be ({tiles},) int32 on the "
                          "operands' device")
     nb = x.shape[0] if x.ndim == 2 else 1
-    col_bytes = (window.width + 1) * c * blocks.dtype.itemsize
-    if per_pass is None:
-        per_pass = window_cols_per_pass(nb, col_bytes, cols_per_pass(blocks.dtype))
-    if per_pass < 1:
-        raise ValueError(f"{kernel}: a window of {col_bytes} bytes a column does "
-                         f"not fit {MAX_SHARED_BYTES} bytes of shared memory")
+    plan = window_plan(r, c, nb, window.width, blocks.dtype)
+    if plan.cols_per_pass < 1:
+        raise ValueError(f"{kernel}: a window of {window.width} block-columns of "
+                         f"{c} {blocks.dtype} values does not fit "
+                         f"{MAX_SHARED_BYTES} bytes of shared memory")
     y = _out(blocks, x, n_rows)
-    fn = _build.kernel_fn("arn_spmv_bsr_window", blocks.dtype)
-    guard, stream = _build.launch_context(blocks.device)
-    with guard:
-        rc = fn(blocks.data_ptr(), window.cols.data_ptr(),
-                window.tile_base.data_ptr(), x.data_ptr(), y.data_ptr(), n_brow,
-                L, r, c, n_rows, x.shape[-1], nb, window.tile_brows,
-                window.width, per_pass, stream)
-    _build.check(rc, kernel)
+    rc = _build.launch(_entry("arn_spmv_bsr_window", blocks.dtype), device,
+                       blocks.data_ptr(), window.cols.data_ptr(), base.data_ptr(),
+                       x.data_ptr(), y.data_ptr(), n_brow, L, r, c, n_rows,
+                       x.shape[-1], nb, window.tile_brows, window.width,
+                       plan.cols_per_pass)
+    if rc:
+        _build.check(rc, kernel)
     _build.count_launch(wrapper, blocks.dtype)
+    if plan.path == "walk":
+        wrapper.walk_launches += 1
     return y
 
 
@@ -364,17 +440,18 @@ bsr_window_matvec.launches = 0
 bsr_window_matvec.dtype_launches = {}
 
 
-def bsr_window_matmat(blocks, window, X, n_rows, *, per_pass=None):
+def bsr_window_matmat(blocks, window, X, n_rows):
     """:func:`bsr_window_matvec` for b columns given as the rows of ``X``
-    (b, n_cols); returns (b, n_rows).  A pass stages the windows of
-    :func:`window_cols_per_pass` columns (``per_pass`` overrides the plan on
-    the card, to time another one; the kernel refuses more than
-    :func:`cols_per_pass` or than shared memory holds); every column gets
-    the bits the single-column kernel gives it."""
+    (b, n_cols); returns (b, n_rows).  The launch is :func:`window_plan`'s:
+    on 8 x 8 blocks the walk (``walk_launches`` counts those launches),
+    which reads each block once for 8 columns; on other shapes passes of
+    :func:`window_cols_per_pass` columns' staged windows.  Every column
+    gets the bits the single-column kernel gives it."""
     _rows("spmv_bsr_window_cols", X)
     return _windowed("spmv_bsr_window_cols", bsr_window_matmat, blocks, window,
-                     X, n_rows, per_pass)
+                     X, n_rows)
 
 
 bsr_window_matmat.launches = 0
 bsr_window_matmat.dtype_launches = {}
+bsr_window_matmat.walk_launches = 0

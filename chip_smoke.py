@@ -41,12 +41,11 @@ nonzero before the last line is printed):
    (gather and staged 8 x 8 gather on the phased scattered matrix, both
    window kernels on the phased banded-1024 matrix) in complex128 and
    complex64 at b = 1 and 8, the same way (cuSPARSE's complex BSR
-   product), the complex128
-   window kernel at b = 8 with 4 columns a pass in one stage (the plan) and
-   2 in two stages, and complex128 edge shapes (the window kernels at b =
-   1, 3, 4, 5, 8, 11 with (8, 8) and (4, 4) blocks, the staged gather
-   kernel at b = 2, 3, 8, 11, 16; views one element in), every column bit
-   for bit against the single-column kernel;
+   product), the window kernel's b = 8 form (the walk) beside the staged
+   gather on the same matrix in both dtypes, and complex128 edge shapes
+   (the window kernels at b = 1, 3, 4, 5, 8, 11 with (8, 8) and (4, 4)
+   blocks, the staged gather kernel at b = 2, 3, 8, 11, 16; views one
+   element in), every column bit for bit against the single-column kernel;
 2. solve A: ``partial_schur`` on ``laplace_2d(724)`` (n = 524,176, DIA
    kernel + fused CGS2), LM, k = 5, m = 80, float64, tol 1e-8, checked
    against the analytic spectrum;
@@ -56,8 +55,8 @@ nonzero before the last line is printed):
 4. solve C: the same matrix as ``format=("bsr", (8, 8))`` (BSR gather
    kernel), scalar, same settings, checked against solve B's ARPACK values;
 5. solve D: ``random_scattered(2^20, 24, seed=2, bandwidth=1024, block=8)``
-   as BSR-8 (its window fits shared memory: BSR window kernel, b-column
-   form), ``block_size=8``, LR, k = 5, m = 40, checked against ARPACK;
+   as BSR-8 (its window fits the budget: BSR window kernel, b-column form,
+   the walk), ``block_size=8``, LR, k = 5, m = 40, checked against ARPACK;
 6. solve E: ``laplace_2d(724)``, ``block_size=8`` (DIA b-column kernel),
    LM, k = 5, m = 80, p = 40, checked against the analytic spectrum;
 7. solve F: the scattered 2^20 matrix by default routing (ELL b-column
@@ -179,8 +178,9 @@ shift-invert solve finds (``PERF.md`` §2).
     ``block_size=8`` (``spmv_bsr_cols``, the staged 8 x 8 gather kernel on
     every call), each checked against solve R's ARPACK values;
 36. solve DB: ``phased(random_scattered(2^20, 24, seed=2, bandwidth=1024,
-    block=8))`` as complex128 BSR-8 (the window kernels), scalar and b = 8,
-    against complex ARPACK (computed in the reference worker);
+    block=8))`` as complex128 BSR-8 (the window kernels; b = 8 the walk
+    on every call), scalar and b = 8, against complex ARPACK (computed in
+    the reference worker);
 37. solve VB: RB's operator in complex64 to tol 1e-5, scalar and b = 8 (the
     complex64 gather forms), within 1e-4 of solve RB's values;
 38. ``svds`` of DB's phased banded-1024 matrix and of its reflected form
@@ -2980,7 +2980,7 @@ COMPLEX_BSR_KERNELS = ("spmv_bsr", "spmv_bsr_cols", "spmv_bsr_window",
 #: The complex BSR forms each complex dtype's solves must launch (phases 35-39).
 COMPLEX_BSR_PATH = {"complex128": COMPLEX_BSR_KERNELS,
                     "complex64": ("spmv_bsr", "spmv_bsr_cols")}
-COMPLEX_WINDOW_EDGE_NB = (1, 3, 4, 5, 8, 11)   # 8, 11: passes of 4 in complex128
+COMPLEX_WINDOW_EDGE_NB = (1, 3, 4, 5, 8, 11)   # 11: two passes of the walk
 CHECKPOINT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                               "build", "chip_smoke")
 
@@ -3002,11 +3002,12 @@ def phase_complex_bsr_kernels(mats, gen, device="cuda"):
     single-column kernel and the window kernel against the gather kernel;
     each timed beside its bound (the nonzeros, their blocks' ids, x and y
     at 3.35 TB/s; 8 flops a complex multiply-add) and its library call;
-    the complex128 window kernel at b = 8 also with 2 columns a pass in two
-    stages, against the plan's 4 in one; then the complex128 edge shapes
-    (``phase_complex_bsr_edges``).  Returns ``({(kernel, dtype name):
-    KernelRecord}, {plan: ms})``.  ``device="cpu"`` rehearses it with the
-    plain versions (stub the timers)."""
+    the window kernel at b = 8 (the walk) also beside the staged gather
+    (``bsr_matmat``) on the same matrix and X; then the complex128 edge
+    shapes (``phase_complex_bsr_edges``).  Returns
+    ``({(kernel, dtype name): KernelRecord}, {dtype name: {path: {"ms",
+    "dev_ms"}}})``.  ``device="cpu"`` rehearses it with the plain versions
+    (stub the timers)."""
     import torch
 
     from arnoldi_tpu_torch import as_operator
@@ -3067,21 +3068,23 @@ def phase_complex_bsr_kernels(mats, gen, device="cuda"):
                         torch.equal(Y, spmv_bsr.bsr_matmat(blk, ids, X, nr)) and torch.equal(
                             forms["spmv_bsr_window"][0](), forms["spmv_bsr"][0]())):
                     fail(f"complex BSR window {tag}: window and gather kernels differ")
-            if kind == "window" and dtype == torch.complex128:
-                # The plan's 4 columns a pass in one stage, against 2 a
-                # pass in two stages (the blocks read 4 times).
-                col_bytes = (win.width + 1) * 8 * item
-                for per_pass in (4, 2):
-                    def call(per_pass=per_pass):
-                        return spmv_bsr.bsr_window_matmat(blk, win, X, nr,
-                                                          per_pass=per_pass)
-                    if dev.type == "cuda" and not torch.equal(call(), forms[names[1]][0]()):
-                        fail(f"complex128 window plan {per_pass}: other bits")
-                    ms, dev_ms = cuda_ms(call), device_ms(call)
-                    stages = spmv_bsr.window_stages(per_pass, col_bytes)
-                    plans[f"{per_pass}_per_pass_{stages}_stage"] = {"ms": ms, "dev_ms": dev_ms}
-                    print(f"  complex128 window b={B_COLS}, {per_pass} columns a pass, "
-                          f"{stages} stage(s): {ms:.4f} ms (device {dev_ms})")
+            if kind == "window":
+                # The yardstick on the same matrix and X: the staged gather
+                # (bsr_matmat), against the plan's walk.
+                walks = spmv_bsr.bsr_window_matmat.walk_launches
+                forms[names[1]][0]()
+                if dev.type == "cuda" and \
+                        spmv_bsr.bsr_window_matmat.walk_launches != walks + 1:
+                    fail(f"spmv_bsr_window_cols {tag}: the plan should take the walk")
+                def gather():
+                    return spmv_bsr.bsr_matmat(blk, ids, X, nr)
+
+                got = plans[tag] = {
+                    "walk": {"ms": rec[names[1]].ms, "dev_ms": rec[names[1]].dev_ms},
+                    "gather": {"ms": cuda_ms(gather), "dev_ms": device_ms(gather)}}
+                print(f"  {tag} banded-1024 b={B_COLS}: "
+                      + "; ".join(f"{label} {v['ms']:.4f} ms (device {v['dev_ms']})"
+                                  for label, v in got.items()))
             del op, blk, ids, win, x, X, Xt, A_lib
         sync()
         for name, r in rec.items():
@@ -3243,10 +3246,19 @@ def phase_complex_bsr(mats, references, counts, dcounts, refs, device="cuda"):
     ref_db = reference(references, "DB")
     for label, b, names in (("DB", 1, ("spmv_bsr_window",)),
                             ("DB8", B_COLS, ("spmv_bsr_window_cols",))):
-        before = dcounts()
+        before, walks = dcounts(), spmv_bsr.bsr_window_matmat.walk_launches
         Q, T, hist, wall = solve(f"solve {label}", op_db, 5, "LR", 40, counts,
                                  dtype=c128, block_size=b)
-        check_launched_dtype(f"solve {label}", before, dcounts(), names, c128)
+        after = dcounts()
+        check_launched_dtype(f"solve {label}", before, after, names, c128)
+        if b > 1:
+            walks = spmv_bsr.bsr_window_matmat.walk_launches - walks
+            calls = (after["spmv_bsr_window_cols"].get("complex128", 0)
+                     - before["spmv_bsr_window_cols"].get("complex128", 0))
+            print(f"  spmv_bsr_window_cols launches of the window walk: {walks} of "
+                  f"{calls}")
+            if torch.device(device).type == "cuda" and walks != calls:
+                fail("solve DB (block) did not take the window walk on every call")
         check_triangular(f"solve {label}", T)
         check_arpack(f"solve {label}", A_db, Q, T, ref_db)
         rows.append((label, hist, wall))
@@ -4770,8 +4782,9 @@ def run_phases(mats, references, smi):
          "ms": r.ms, "plain_ms": r.plain_ms, "bound_ms": r.bound_ms,
          "bound_by": r.bound_by, "library_ms": r.library_ms, "dev_ms": r.dev_ms,
          "library_dev_ms": r.library_dev_ms, "library": r.library,
-         **({"window_plans": window_plans} if name == "spmv_bsr_window_cols"
-            and tag == "complex128" else {})}
+         "enqueue_us": r.enqueue_us,
+         **({"window_paths": window_plans[tag]} if name == "spmv_bsr_window_cols"
+            else {})}
         for (name, tag), r in brec.items()]
     # The b-column forms at the filter's widths (phases 32-33): "launches"
     # counts phases 32-34's launches in the record's dtype.

@@ -3,7 +3,7 @@
 
     python3 scripts/bsr_ab.py [--repo DIR] [--label NAME] [--matrix M]
                               [--profile] [--library] [--solves] [--cols B]
-                              [--dtype D] [--per-pass P] [--time-only]
+                              [--dtype D] [--time-only]
                               [--save FILE | --against FILE]
 
 Imports ``arnoldi_tpu_torch`` from DIR (default: the checkout that holds this
@@ -22,10 +22,10 @@ builds them):
 b = 8 columns, or ``--cols B``.  ``--dtype complex128`` or ``complex64``
 times the complex forms on the matrix with every off-diagonal value times
 ``e^{i phi}`` (phi uniform on [0, 2 pi) from seed 7: ``chip_smoke.phased``).
-``--per-pass P`` also times the window kernel's b-column form with P
-columns staged a pass (``bsr_window_matmat(..., per_pass=P)``; two stages
-where they fit), bit for bit against the wrapper's plan.  Each form is checked
-against its plain version (relative error 1e-12, 1e-5 in complex64), the
+On banded the output names the window wrapper's plan
+(``spmv_bsr.window_plan``, where the checkout has it).  Each form is checked
+against its plain version (relative error 1e-12, 1e-5 in complex64; the
+SHA-256 of its output is printed, to compare checkouts), the
 window form against the gather form bit
 for bit, and every column of each b-column form against its single-column
 form bit for bit; then timed as CUDA-event means of 20 back-to-back
@@ -51,6 +51,8 @@ Needs a card; exits nonzero without one.
 """
 
 import argparse
+import dataclasses
+import hashlib
 import json
 import statistics
 import subprocess
@@ -183,7 +185,6 @@ def main():
     ap.add_argument("--dtype", choices=("float64", "float32", "complex128",
                                         "complex64"),
                     default="float64")
-    ap.add_argument("--per-pass", type=int, default=0)
     ap.add_argument("--time-only", action="store_true")
     ap.add_argument("--save", default="")
     ap.add_argument("--against", default="")
@@ -244,7 +245,8 @@ def main():
         err = float((got[tag] - want).norm() / want.norm())
         if not (err <= limit or args.time_only):
             raise SystemExit(f"bsr_ab: {tag} relative error {err:.3e}")
-        out[tag] = {"ms": cuda_ms(kernel), "rel_err": err}
+        out[tag] = {"ms": cuda_ms(kernel), "rel_err": err,
+                    "sha256": hashlib.sha256(got[tag].cpu().numpy().tobytes()).hexdigest()}
         if args.profile:
             out[tag]["device_ms"] = device_ms(kernel)
     out["gather_columns_equal_single"] = all(
@@ -264,16 +266,10 @@ def main():
         theirs = torch.load(args.against)
         out["bits_equal_against"] = {tag: torch.equal(y.cpu(), theirs[tag])
                                      for tag, y in got.items()}
-    if banded and args.per_pass:
-        def call():
-            return spmv_bsr.bsr_window_matmat(blk, win, X, nr, per_pass=args.per_pass)
-
-        out[f"spmv_bsr_window_cols_per_pass_{args.per_pass}"] = {
-            "ms": cuda_ms(call),
-            "equals_wrapper": torch.equal(call(), got["spmv_bsr_window_cols"])}
-        if args.profile:
-            out[f"spmv_bsr_window_cols_per_pass_{args.per_pass}"]["device_ms"] = \
-                device_ms(call)
+    # A checkout from before the walk has no window_plan.
+    plan = getattr(spmv_bsr, "window_plan", None)
+    if banded and plan is not None:
+        out["window_plan"] = dataclasses.asdict(plan(8, 8, args.cols, win.width, dtype))
     if args.library:
         A_bsr, Xt = bsr_tensor(A, dev, dtype), X.T.contiguous()
         for tag, fn in (("cusparse_spmv", lambda: A_bsr @ x),

@@ -3,15 +3,17 @@
 window on laplace_3d(64), the refined float32 filter on laplace_3d(48) as
 ELL and the explicit-restart drivers on the scattered 2^20-row matrix,
 then the b-column kernels at the filter's widths against their plain
-versions (timed beside their bound and cuSPARSE's SpMM) and one sweep
-under the profiler.
+versions (timed beside their bound and cuSPARSE's SpMM) and one sweep of
+solve 32 (DIA, float64) and one of solve 33 (ELL, float32) under the
+profiler.
 
     python3 scripts/filtered_smoke.py
 
 ARPACK's ten largest-real values of the scattered matrix (computed here on
 the host) stand for solve B's and solve Z's references.  Prints the same
-lines as those phases of ``chip_smoke.py`` and, last, a JSON object of
-their summary fields.  Exits nonzero without a card or when a check fails.
+lines as those phases of ``chip_smoke.py`` (each sweep's split by kernel
+family) and, last, a JSON object of their summary fields, the splits under
+``"32"`` and ``"33"``.  Exits nonzero without a card or when a check fails.
 """
 
 import json
@@ -39,7 +41,7 @@ def main():
     from scipy.sparse.linalg import eigs
 
     import chip_smoke as cs
-    from arnoldi_tpu_torch import matrices
+    from arnoldi_tpu_torch import as_operator, matrices
     from arnoldi_tpu_torch.ops import kernels
 
     if not torch.cuda.is_available():
@@ -68,7 +70,12 @@ def main():
           f"{kernels.dtype_launch_counts()}")
     cs.phase_filter_kernels(mats, widths,
                             torch.Generator(device="cuda").manual_seed(4))
-    extra["32"]["sweep"] = cs.filter_sweep_split(mats, widths["geometry"])
+    extra["32"]["sweep"] = cs.filter_sweep_split(
+        as_operator(mats["laplace3d64"], dtype=torch.float64, device="cuda"),
+        widths["geometry"])
+    extra["33"]["sweep"] = cs.filter_sweep_split(
+        as_operator(mats["laplace3d48"], format="ell", dtype=torch.float32,
+                    device="cuda"), widths["geometry_33"])
     print(json.dumps(extra, default=str))
 
 

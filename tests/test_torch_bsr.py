@@ -229,25 +229,31 @@ def _window_case(case):
 @pytest.mark.parametrize("nb,n_blocks", [(1, 7), (3, 2), (8, 5), (11, 64)])
 @pytest.mark.parametrize("case", ["mark60", "mark20", "scattered"])
 def test_window_plan_stages_every_id(case, nb, n_blocks):
-    # The window kernel's plan: each (tile, column) is staged and
-    # contracted once, each thread block walks a contiguous run of items
-    # with the passes of a tile back to back, and the window a tile stages
-    # (its clamped base, Wt block-columns) holds every id of the tile.
+    # The window kernel's plan: one column stages each tile once, each
+    # thread block walking a contiguous run of tiles; b >= 2 columns take
+    # the walk (gather8_steps over the window layout), which contracts each
+    # (block-row, column, slot) once.  The window a tile reads (its clamped
+    # base, Wt block-columns) holds every id of the tile.
     op = _window_case(case)
     win, c = op.window, op.blockshape[1]
-    per_pass = spmv_bsr.window_cols_per_pass(nb, (win.width + 1) * c * 8)
-    assert 1 <= per_pass <= min(nb, spmv_bsr.MAX_COLS_PER_PASS)
+    plan = spmv_bsr.window_plan(8, c, nb, win.width, torch.float64)
     n_tiles = win.tile_base.shape[0]
-    passes = -(-nb // per_pass)
-    n_blocks = min(n_blocks, n_tiles * passes)     # the grid never exceeds the items
-    plan = spmv_bsr.window_items(n_tiles, nb, per_pass, n_blocks)
-    assert len(plan) == n_blocks and all(plan)
-    flat = [item for run in plan for item in run]
-    want = [(t, p * per_pass, min(per_pass, nb - p * per_pass))
-            for t in range(n_tiles) for p in range(passes)]
-    assert flat == want
-    staged = [(t, j) for t, j0, cnt in flat for j in range(j0, j0 + cnt)]
-    assert sorted(staged) == [(t, j) for t in range(n_tiles) for j in range(nb)]
+    n_brow, L = win.cols.shape
+    if nb == 1:
+        assert (plan.path, plan.cols_per_pass) == ("staged", 1)
+        n_blocks = min(n_blocks, n_tiles)           # the grid never exceeds the tiles
+        runs = spmv_bsr.window_items(n_tiles, n_blocks)
+        assert len(runs) == n_blocks and all(runs)
+        assert [t for run in runs for t in run] == list(range(n_tiles))
+        assert all(run == list(range(run[0], run[-1] + 1)) for run in runs)
+    else:
+        assert (plan.path, plan.passes) == ("walk", -(-nb // 8))
+        seen = np.zeros((nb, n_brow, L), dtype=int)
+        for run in spmv_bsr.gather8_steps(n_brow, L, nb, n_blocks):
+            for pair, j0, cnt, l0 in run:
+                for brow in range(2 * pair, min(2 * pair + 2, n_brow)):
+                    seen[j0:j0 + cnt, brow, l0:l0 + 4] += 1
+        assert (seen == 1).all()
     base = spmv_bsr.window_bases(win, op.n_cols, c).numpy()
     tiles = np.arange(win.cols.shape[0]) // win.tile_brows
     rel = win.cols.numpy() - base[tiles][:, None]
@@ -256,31 +262,39 @@ def test_window_plan_stages_every_id(case, nb, n_blocks):
                                                               win.width)
 
 
-@pytest.mark.parametrize("dtype,nb,per_pass,stages", [
-    (torch.float64, 1, 1, 2),     # solve H: the next window copied meanwhile
-    (torch.float64, 4, 4, 2),
-    (torch.float64, 8, 8, 1),     # solve D: every column in one pass
-    (torch.float64, 11, 8, 1),
-    (torch.float32, 8, 8, 2)])
-def test_window_passes_and_stages_at_banded_1024(dtype, nb, per_pass, stages):
-    # banded-1024 as BSR-8 has a window of 384 block-columns
-    col_bytes = (384 + 1) * 8 * dtype.itemsize
-    assert spmv_bsr.window_cols_per_pass(nb, col_bytes) == per_pass
-    assert spmv_bsr.window_stages(per_pass, col_bytes) == stages
-    assert 16 + stages * per_pass * col_bytes <= spmv_bsr.MAX_SHARED_BYTES
+# banded-1024 as BSR-8 has a window of 384 block-columns (24,640 B a
+# float64 column staged with its zero block-column)
+@pytest.mark.parametrize("dtype,nb,want", [
+    (torch.float64, 1, ("staged", 1, 1, 2, 256, 16 + 2 * 24640)),   # solve H
+    (torch.float64, 4, ("walk", 8, 1, 0, 512, 16 * 2 * (256 + 4) * 8)),
+    (torch.float64, 8, ("walk", 8, 1, 0, 512, 16 * 2 * (256 + 4) * 8)),  # solve D
+    (torch.float64, 11, ("walk", 8, 2, 0, 512, 16 * 2 * (256 + 4) * 8)),
+    (torch.float32, 8, ("walk", 8, 1, 0, 512, 16 * 2 * (256 + 8) * 4))])
+def test_window_passes_and_stages_at_banded_1024(dtype, nb, want):
+    plan = spmv_bsr.window_plan(8, 8, nb, 384, dtype)
+    assert (plan.path, plan.cols_per_pass, plan.passes, plan.stages, plan.threads,
+            plan.shared_bytes) == want
+    assert plan.shared_bytes <= spmv_bsr.MAX_SHARED_BYTES
 
 
 def test_window_passes_at_the_budget():
     # the widest window the routing sends to the window kernel (64 KB a
-    # float64 column) still stages three columns a pass in one stage, or
-    # one column in two; a window wider than shared memory stages none,
-    # and the wrapper refuses it
-    col_bytes = (spmv_bsr.WINDOW_BUDGET_BYTES // 64 + 1) * 64
-    per_pass = spmv_bsr.window_cols_per_pass(8, col_bytes)
-    assert per_pass == 3
-    assert spmv_bsr.window_stages(per_pass, col_bytes) == 1
-    assert spmv_bsr.window_stages(1, col_bytes) == 2
+    # float64 column): one column still stages it in two stages, b >= 2
+    # walks as at any width, and the general kernel (4 x 4 blocks) stages
+    # three columns a pass; a window wider than shared memory stages
+    # nothing, and the wrapper refuses it for one column
+    width = spmv_bsr.WINDOW_BUDGET_BYTES // 64
+    one = spmv_bsr.window_plan(8, 8, 1, width, torch.float64)
+    assert (one.path, one.cols_per_pass, one.stages) == ("staged", 1, 2)
+    assert spmv_bsr.window_stages((width + 1) * 64) == 2
+    assert spmv_bsr.window_plan(8, 8, 8, width, torch.float64) \
+        == spmv_bsr.window_plan(8, 8, 8, 8, torch.float64)
+    general = spmv_bsr.window_plan(4, 4, 8, 2 * width, torch.float64)
+    assert (general.path, general.cols_per_pass) == ("general", 3)
     assert spmv_bsr.window_cols_per_pass(8, spmv_bsr.MAX_SHARED_BYTES) == 0
+    too_wide = spmv_bsr.MAX_SHARED_BYTES // 64
+    assert spmv_bsr.window_plan(8, 8, 1, too_wide, torch.float64).cols_per_pass == 0
+    assert spmv_bsr.window_stages(spmv_bsr.MAX_SHARED_BYTES // 2) == 1
 
 
 @pytest.mark.parametrize("blockshape,nb,want", [

@@ -16,6 +16,8 @@ complex ELL tests get them (``test_torch_complex.py``: complex128, the
 same restart policy).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -199,21 +201,32 @@ def test_bsr_wrappers_take_complex_operands():
                             op.n_rows)
 
 
-@pytest.mark.parametrize("dtype,nb,per_pass,stages", [
-    (torch.complex128, 1, 1, 2),   # solve DB: the next window copied meanwhile
-    (torch.complex128, 3, 3, 1),
-    (torch.complex128, 8, 4, 1),   # 2 passes of 4 columns, one stage
-    (torch.complex128, 11, 4, 1),
-    (torch.complex64, 8, 8, 1)])   # complex64 stages as float64 does
-def test_complex_window_plan_at_banded_1024(dtype, nb, per_pass, stages):
-    # banded-1024 as BSR-8: a window of 384 block-columns, 49,280 B a
-    # complex128 column (the window and one zero block-column)
+# banded-1024 as BSR-8: a window of 384 block-columns, 49,280 B a
+# complex128 column staged (the window and one zero block-column)
+@pytest.mark.parametrize("dtype,nb,want", [
+    # solve DB (b = 1): one staged column, the next window copied meanwhile
+    (torch.complex128, 1, ("staged", 1, 1, 2, 256, 16 + 2 * 49280)),
+    # b >= 2: the walk, no window staged, each block read once a pass of 8
+    (torch.complex128, 3, ("walk", 8, 1, 0, 256, 8 * 2 * (256 + 2) * 16)),
+    (torch.complex128, 8, ("walk", 8, 1, 0, 256, 8 * 2 * (256 + 2) * 16)),
+    (torch.complex128, 11, ("walk", 8, 2, 0, 256, 8 * 2 * (256 + 2) * 16)),
+    (torch.complex64, 1, ("staged", 1, 1, 2, 256, 16 + 2 * 24640)),
+    (torch.complex64, 3, ("walk", 8, 1, 0, 512, 16 * 2 * (256 + 4) * 8)),
+    (torch.complex64, 8, ("walk", 8, 1, 0, 512, 16 * 2 * (256 + 4) * 8)),
+    (torch.complex64, 11, ("walk", 8, 2, 0, 512, 16 * 2 * (256 + 4) * 8))])
+def test_complex_window_plan_at_banded_1024(dtype, nb, want):
+    plan = spmv_bsr.window_plan(8, 8, nb, 384, dtype)
+    assert (plan.path, plan.cols_per_pass, plan.passes, plan.stages, plan.threads,
+            plan.shared_bytes) == want
+    assert plan.shared_bytes <= spmv_bsr.MAX_SHARED_BYTES
+    assert (plan.path == "walk") == spmv_bsr.uses_gather8(8, 8, nb)
+    if plan.path == "walk":
+        assert plan.shared_bytes == spmv_bsr.gather8_shared_bytes(dtype)
+        assert plan.threads == spmv_bsr.gather8_threads(dtype)
+    # staged windows of all 8 columns would not fit a block's shared
+    # memory in complex128 (the earlier design ran 2 passes of 4)
     col_bytes = (384 + 1) * 8 * dtype.itemsize
-    got = spmv_bsr.window_cols_per_pass(nb, col_bytes,
-                                        spmv_bsr.cols_per_pass(dtype))
-    assert got == per_pass
-    assert spmv_bsr.window_stages(per_pass, col_bytes) == stages
-    assert 16 + stages * per_pass * col_bytes <= spmv_bsr.MAX_SHARED_BYTES
+    assert (16 + 8 * col_bytes <= spmv_bsr.MAX_SHARED_BYTES) == (dtype == torch.complex64)
 
 
 def test_window_budget_counts_bytes():
@@ -224,8 +237,79 @@ def test_window_budget_counts_bytes():
     assert win.fits(8, torch.complex128) == (win.width <= 512)
     wide = type(win)(win.cols, win.tile_base, 513, win.tile_brows)
     assert not wide.fits(8, torch.complex128) and wide.fits(8, torch.float64)
+    # the general kernels' columns a pass: 4 in complex128, 8 in complex64
     assert spmv_bsr.cols_per_pass(torch.complex128) == 4
     assert spmv_bsr.cols_per_pass(torch.complex64) == 8
+    for dtype in (torch.complex128, torch.complex64):
+        # the walk stages no window: its plan is the same at the widest
+        # window the budget admits as at the narrowest
+        assert spmv_bsr.window_plan(8, 8, 8, 512, dtype) \
+            == spmv_bsr.window_plan(8, 8, 8, 8, dtype)
+        # one column stages its window at the budget, in two stages
+        one = spmv_bsr.window_plan(8, 8, 1, 512, dtype)
+        assert (one.path, one.cols_per_pass, one.stages) == ("staged", 1, 2)
+    # other block shapes keep the general kernel: a complex128 (4, 4)
+    # window at the budget (1024 block-columns) stages 3 columns a pass
+    general = spmv_bsr.window_plan(4, 4, 8, 1024, torch.complex128)
+    assert (general.path, general.cols_per_pass, general.passes) == ("general", 3, 3)
+
+
+def _walk_window_product(op, X, n_warps):
+    """Follow the window walk (``gather8_steps`` over the window layout)
+    step by step: each block's x segments read from the tile's clamped
+    window, zero outside it.  Returns the product and the count of each
+    (block-row, column, slot) the walk contracted."""
+    blk, win = op.blocks.numpy(), op.window
+    ids = win.cols.numpy()
+    n_brow, L = ids.shape
+    nb = X.shape[0]
+    base = spmv_bsr.window_bases(win, op.n_cols, 8).numpy()
+    Xp = np.zeros((nb, (max(ids.max() + 1, -(-op.n_cols // 8))) * 8), dtype=X.dtype)
+    Xp[:, :op.n_cols] = X
+    Y = np.zeros((nb, n_brow * 8), dtype=X.dtype)
+    seen = np.zeros((nb, n_brow, L), dtype=int)
+    for run in spmv_bsr.gather8_steps(n_brow, L, nb, n_warps):
+        acc = {}
+        for pair, j0, cnt, l0 in run:
+            for brow in (2 * pair, 2 * pair + 1):
+                if brow >= n_brow:
+                    continue
+                part = acc.setdefault(brow, np.zeros((cnt, 8), dtype=X.dtype))
+                b0 = base[brow // win.tile_brows]
+                for l in range(l0, min(l0 + 4, L)):
+                    seen[j0:j0 + cnt, brow, l] += 1
+                    if 0 <= ids[brow, l] - b0 < win.width:
+                        xs = Xp[j0:j0 + cnt, ids[brow, l] * 8:ids[brow, l] * 8 + 8]
+                        part += xs @ blk[brow, l].T
+                if l0 + 4 >= L:
+                    Y[j0:j0 + cnt, brow * 8:brow * 8 + 8] = acc.pop(brow)
+        assert not acc
+    return Y[:, :op.n_rows], seen
+
+
+@pytest.mark.parametrize("nb", [1, 3, 8, 11])
+@pytest.mark.parametrize("n,tile_brows,n_warps", [
+    (N, 128, 5),          # 125 block-rows: one tile, cut short
+    (2000, 128, 16),      # 250 block-rows: the second tile cut short
+    (2000, 16, 7)])       # 16 tiles, the last of 10 block-rows
+def test_window_walk_covers_every_slot_once(n, tile_brows, n_warps, nb):
+    # The window walk: every (block-row, column, slot) is contracted
+    # exactly once, and following it gives the window form's product.
+    A = phased(random_scattered(2048, 24, seed=4, bandwidth=256, block=8)[:n, :n])
+    op = BsrOperator.from_scipy(A, device="cpu")
+    assert op.window.tile_brows == 128
+    if tile_brows != 128:
+        win = spmv_bsr.bsr_window(op.blocks.numpy(), op.block_cols.numpy(),
+                                  device="cpu", tile_brows=tile_brows)
+        op = dataclasses.replace(op, window=win)
+    n_brow = op.blocks.shape[0]
+    assert n_brow % op.window.tile_brows != 0
+    X = _vectors((nb, n), np.complex128, seed=nb)
+    Y, seen = _walk_window_product(op, X, n_warps)
+    assert (seen == 1).all()
+    want = spmv_bsr.bsr_window_matvec_plain(op.blocks, op.window, torch.from_numpy(X),
+                                            op.n_rows).numpy()
+    np.testing.assert_allclose(Y, want, rtol=0, atol=1e-12 * np.abs(want).max())
 
 
 # -- the drivers ----------------------------------------------------------------
@@ -310,12 +394,13 @@ def test_svds_of_a_complex_bsr_operator_matches_jax():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
 @pytest.mark.parametrize("shape", [(8, 8), (4, 4)])
-@pytest.mark.parametrize("b", [1, 3, 8, 11])
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8, 11])
 def test_complex_bsr_kernels_match_plain_on_the_card(b, shape, dtype,
                                                      cuda_device):
     """Both complex BSR kernels against their plain versions on the card
     (normwise 1e-12 complex128, 1e-5 complex64); every column of a
-    b-column form bit for bit against the single-column kernel."""
+    b-column form bit for bit against the single-column kernel (8 x 8 at b
+    >= 2: the window walk)."""
     limit = 1e-12 if dtype == torch.complex128 else 1e-5
     op = as_operator(_matrix(), dtype=dtype, format=("bsr", shape),
                      device=cuda_device)
