@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..utils import sorting
+from ..utils.profiling import NULL_CLOCK
 from ..linop import as_operator, cast_operator
 from ..ops.ortho import M_SQRT1_2, block_cgs2, resolve_ortho
 
@@ -37,7 +38,8 @@ def _any_breakdown(flags, like):
 
 
 def arnoldi_expand(op, Vt, H, invariant_tol=None, *, start_dim=0, max_dim=None,
-                   ortho="cgs_dgks", stop_at_breakdown=True, mesh=None):
+                   ortho="cgs_dgks", stop_at_breakdown=True, mesh=None,
+                   clock=NULL_CLOCK):
     """Extend the Arnoldi factorization ``(Vt, H)`` of ``op`` in place.
 
     Rows ``0..start_dim`` of ``Vt`` are valid (row ``start_dim`` is the next
@@ -59,6 +61,10 @@ def arnoldi_expand(op, Vt, H, invariant_tol=None, *, start_dim=0, max_dim=None,
     its columns; the ortho kernel sums its projections and norms over the
     ranks, so ``H``, the norms and the breakdown flags are the same on
     every rank, and so is the control flow.
+
+    ``clock`` (``utils/profiling.py``) times each step's product as the
+    phase ``matvec`` and its orthogonalization, the flag read included, as
+    ``ortho``.
     """
     m = Vt.shape[0] - 1
     n = op.shape[0]
@@ -80,12 +86,15 @@ def arnoldi_expand(op, Vt, H, invariant_tol=None, *, start_dim=0, max_dim=None,
 
     flags = []
     for j in range(start_dim, max_dim):
-        w = op.matvec(Vt[j])
-        h, w, beta, breakdown = ortho_fn(Vt, w, j + 1, tol=invariant_tol)
+        with clock("matvec"):
+            w = op.matvec(Vt[j])
+        with clock("ortho"):
+            h, w, beta, breakdown = ortho_fn(Vt, w, j + 1, tol=invariant_tol)
+            broke = stop_at_breakdown and bool(breakdown)
         H[:, j] = h
         if not stop_at_breakdown:
             flags.append(breakdown)
-        elif bool(breakdown):
+        elif broke:
             H[j + 1, j] = 0
             Vt[j + 1] = w
             return Vt, H, j + 1
@@ -95,7 +104,7 @@ def arnoldi_expand(op, Vt, H, invariant_tol=None, *, start_dim=0, max_dim=None,
 
 
 def block_arnoldi_expand(op, Vt, H, invariant_tol, *, start_block, n_blocks, b,
-                         stop_at_breakdown=True, mesh=None):
+                         stop_at_breakdown=True, mesh=None, clock=NULL_CLOCK):
     """Block Arnoldi expansion of ``(Vt, H)`` in place: b vectors per step.
 
     Counterpart of ``_block_expand_jit`` (its window ``_block_expand_window``).
@@ -113,8 +122,8 @@ def block_arnoldi_expand(op, Vt, H, invariant_tol, *, start_block, n_blocks, b,
     Returns ``(Vt, H, n_done_blocks)``; ``n_done_blocks < n_blocks`` iff a
     step broke down.  ``stop_at_breakdown=False`` reads no flag, runs every
     step and returns a 0-d bool tensor in its place, as
-    :func:`arnoldi_expand` does; ``mesh`` as there (``block_cgs2`` sums its
-    projections and Gram matrices over the ranks).
+    :func:`arnoldi_expand` does; ``mesh`` and ``clock`` as there
+    (``block_cgs2`` sums its projections and Gram matrices over the ranks).
     """
     n = op.shape[0]
     if op.shape[1] != n:
@@ -131,12 +140,15 @@ def block_arnoldi_expand(op, Vt, H, invariant_tol, *, start_block, n_blocks, b,
     flags = []
     for j in range(start_block, n_blocks):
         lo, mid, hi = j * b, (j + 1) * b, (j + 2) * b
-        W = op.matmat_rows(Vt[lo:mid])
-        C, Q, R, breakdown = block_cgs2(Vt, W, mid, tol=invariant_tol,
-                                        mesh=mesh)
+        with clock("matvec"):
+            W = op.matmat_rows(Vt[lo:mid])
+        with clock("ortho"):
+            C, Q, R, breakdown = block_cgs2(Vt, W, mid, tol=invariant_tol,
+                                            mesh=mesh)
+            broke = stop_at_breakdown and bool(breakdown)
         if not stop_at_breakdown:
             flags.append(breakdown)
-        elif bool(breakdown):
+        elif broke:
             return Vt, H, j
         H[:, lo:mid] = C
         H[mid:hi, lo:mid] = R

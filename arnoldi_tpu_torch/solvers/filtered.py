@@ -61,7 +61,7 @@ from ..ops.ortho import _reduce, block_cgs2
 from ..parallel.mesh import local_rows
 from ..parallel.sharded import check_operator_mesh, operator_mesh, shard_operator
 from ..utils.history import History
-from ..utils.profiling import phase_clock
+from ..utils.profiling import phase_clock, solve_span
 from ..utils.random import rand_normalized_vector
 from . import refine as refinement
 from .decomposition import arnoldi_expand
@@ -600,6 +600,7 @@ def _start_block(s, n, X0, wdtype, device, generator, mesh=None):
     return block_cgs2(X, X, 0, mesh=mesh)[1]
 
 
+@solve_span(lambda out: out[2].total_matvecs)
 def eigsh_filtered(
     A,
     nev,
@@ -740,10 +741,9 @@ def eigsh_filtered(
         if _census_mu is not None and cdeg <= len(_census_mu) - 1:
             mu = _census_mu     # the moments are window-independent
         else:
-            with clock("filter.sizing_probe"):
-                mu = spectral_moments(op, cdeg, bounds=(lmin, lmax),
-                                      generator=generator, mesh=mesh,
-                                      _Z=probes.get("sizing"))
+            mu = spectral_moments(op, cdeg, bounds=(lmin, lmax),
+                                  generator=generator, mesh=mesh,
+                                  _Z=probes.get("sizing"))
             matvecs += PROBES * (cdeg + 1)
         # 2x the owned cluster in slice mode (a missed pair is a
         # completeness failure), 1.5x otherwise; 1.25x the transition
@@ -764,7 +764,9 @@ def eigsh_filtered(
     if do_refine:
         tol = max(tol, 1e-5)
 
-    X = _start_block(s, n, X0, wdtype, op.device, generator, mesh)
+    with clock("filter.start_block") as phase:
+        X = _start_block(s, n, X0, wdtype, op.device, generator, mesh)
+        phase.count = s
     verbose = bool(os.environ.get("ARNOLDI_FILTER_VERBOSE"))
     history = History.from_k(nev or 1)
     center = 0.5 * (a_m + b_m)
@@ -772,10 +774,11 @@ def eigsh_filtered(
     res_prev = None
     t_sweep = time.perf_counter()
     for sweep in range(int(max_iters)):
-        with clock("filter.sweep"):
+        with clock("filter.sweep") as phase:
             X, theta_h, res_h, n_f = _filter_rr_step(
                 op, X, coeffs, lmin, lmax,
                 active=_active_rows(res_prev, tol * scale, s), mesh=mesh)
+            phase.count = degree * n_f + s
         res_prev = res_h
         matvecs += degree * n_f + s     # the filter and the Rayleigh-Ritz product
         inside = np.nonzero((theta_h >= a_m) & (theta_h <= b_m))[0]
@@ -787,11 +790,13 @@ def eigsh_filtered(
         history.residual_trace.append(
             float(res_h[pick].max() / scale) if pick.size else np.inf)
         trace = history.residual_trace
-        pick, inside, n_ghost, n_chk = _ghost_gate(
-            trace, sweep, pick, inside, res_h, theta_h, tol * scale, nev,
-            center, scale,
-            lambda pending: _pending_gains(op, X, pending, coeffs, lmin, lmax,
-                                           mesh))
+        with clock("filter.ghost_gate") as phase:
+            pick, inside, n_ghost, n_chk = _ghost_gate(
+                trace, sweep, pick, inside, res_h, theta_h, tol * scale, nev,
+                center, scale,
+                lambda pending: _pending_gains(op, X, pending, coeffs, lmin,
+                                               lmax, mesh))
+            phase.count = degree * n_chk
         matvecs += degree * n_chk
         if verbose:
             print(f"[filtered] sweep {sweep}: degree={degree} s={s} "
@@ -826,16 +831,15 @@ def eigsh_filtered(
                 "degree": degree, "sweeps": n_sweeps, "f64_sweeps": 0,
                 "f64_matvecs": 0}
     if do_refine:
-        with clock("filter.f64_phase"):
-            vals_h, rows, _, pick, r_sweeps, r_mv = _refine_filtered(
-                refinement.exact_operator(op_src), X, win=(lo_f, hi_f),
-                own=(a_m, b_m), lmin=lmin, lmax=lmax, degree=degree,
-                tol=tol_target, scale=scale, nev=nev, history=history,
-                # sharper float64 Ritz values may move a cut-straddling
-                # pair out of the owned window: require most of the
-                # coarse inside count, not all of it
-                min_inside=(int(np.ceil(0.8 * inside.size)) if all_inside
-                            else (nev or 0)), mesh=mesh)
+        vals_h, rows, _, pick, r_sweeps, r_mv = _refine_filtered(
+            refinement.exact_operator(op_src), X, win=(lo_f, hi_f),
+            own=(a_m, b_m), lmin=lmin, lmax=lmax, degree=degree,
+            tol=tol_target, scale=scale, nev=nev, history=history,
+            # sharper float64 Ritz values may move a cut-straddling
+            # pair out of the owned window: require most of the
+            # coarse inside count, not all of it
+            min_inside=(int(np.ceil(0.8 * inside.size)) if all_inside
+                        else (nev or 0)), mesh=mesh)
         matvecs += r_mv
         n_sweeps += r_sweeps
         geometry.update(f64_sweeps=r_sweeps, f64_matvecs=r_mv)
@@ -867,6 +871,7 @@ def _merge_phases(total, parts):
     return merged
 
 
+@solve_span(lambda out: out[2].total_matvecs)
 def eigsh_window(
     A,
     interval,

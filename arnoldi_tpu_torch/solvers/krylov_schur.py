@@ -64,7 +64,7 @@ from ..utils.checkpoint import (RestartCheckpoint, checkpoint_is_sharded,
                                 load_checkpoint, load_checkpoint_sharded,
                                 save_checkpoint, save_checkpoint_sharded)
 from ..utils.history import History
-from ..utils.profiling import phase_clock
+from ..utils.profiling import phase_clock, solve_span
 from ..utils.random import rand_normalized_vector
 from . import refine as refinement
 from .decomposition import default_invariant_tol
@@ -188,6 +188,7 @@ def _workspace(A, op, device, max_dim, b, ortho, clock, wdtype, mesh=None):
     return DeviceWorkspace(op, max_dim, b, ortho, clock, mesh=mesh)
 
 
+@solve_span(lambda out: out[2].total_matvecs)
 def partial_schur(
     A,
     nev,
@@ -396,172 +397,176 @@ def partial_schur(
                 f"Invariant subspace of dimension {m} < nev={nev} found; "
                 "start vector lives in a too-small invariant subspace")
 
-        H_host = ws.h_host()
-        if H_trunc_hp is not None:
-            H_host[: prev_pa + b, :prev_pa] = H_trunc_hp
-        ka = k_lock
-        ma = m - ka
-        H_active = H_host[ka:m, ka:m]
+        # The host turn of one restart: H to the host, its ordered Schur
+        # form, the truncation enqueued; the next expansion is outside it.
+        with clock("restart") as turn:
+            turn.count = restart
+            H_host = ws.h_host()
+            if H_trunc_hp is not None:
+                H_host[: prev_pa + b, :prev_pa] = H_trunc_hp
+            ka = k_lock
+            ma = m - ka
+            H_active = H_host[ka:m, ka:m]
 
-        # Ordered Schur form of the active window (real: 2x2 blocks for
-        # conjugate pairs).
-        with clock("rotate"):
-            T2a, Qa, eigs_a, b_starts, b_sizes, in_block = _ordered_schur(
-                H_active, sort_function, real)
+            # Ordered Schur form of the active window (real: 2x2 blocks for
+            # conjugate pairs).
+            with clock("rotate"):
+                T2a, Qa, eigs_a, b_starts, b_sizes, in_block = _ordered_schur(
+                    H_active, sort_function, real)
 
-        # |h_{m+1,m} Qa[last, i]| / |lambda_i|, or for the block driver
-        # ||B Qa[:, i]|| / |lambda_i| with B the b coupling rows; a
-        # conjugate pair converges as a unit on the norm of its two entries.
-        if b > 1:
-            residuals = np.linalg.norm(H_host[m:m + b, :m] @ Qa,
-                                       axis=0).astype(np.float64)
-            for s, sz in zip(b_starts, b_sizes):
-                if sz == 2:
-                    residuals[s] = residuals[s + 1] = np.hypot(
-                        residuals[s], residuals[s + 1])
-        else:
-            residuals = np.abs(Qa[ma - 1, :]).astype(np.float64)
-            for s, sz in zip(b_starts, b_sizes):
-                if sz == 2:
-                    residuals[s] = residuals[s + 1] = np.hypot(
-                        Qa[ma - 1, s], Qa[ma - 1, s + 1])
-            residuals *= np.abs(H_host[m, m - 1])
-        denom = np.abs(eigs_a)
-        denom = np.where(denom == 0, 1.0, denom)
-        approximate_convergence = residuals / denom
+            # |h_{m+1,m} Qa[last, i]| / |lambda_i|, or for the block driver
+            # ||B Qa[:, i]|| / |lambda_i| with B the b coupling rows; a
+            # conjugate pair converges as a unit on the norm of its two entries.
+            if b > 1:
+                residuals = np.linalg.norm(H_host[m:m + b, :m] @ Qa,
+                                           axis=0).astype(np.float64)
+                for s, sz in zip(b_starts, b_sizes):
+                    if sz == 2:
+                        residuals[s] = residuals[s + 1] = np.hypot(
+                            residuals[s], residuals[s + 1])
+            else:
+                residuals = np.abs(Qa[ma - 1, :]).astype(np.float64)
+                for s, sz in zip(b_starts, b_sizes):
+                    if sz == 2:
+                        residuals[s] = residuals[s + 1] = np.hypot(
+                            Qa[ma - 1, s], Qa[ma - 1, s + 1])
+                residuals *= np.abs(H_host[m, m - 1])
+            denom = np.abs(eigs_a)
+            denom = np.where(denom == 0, 1.0, denom)
+            approximate_convergence = residuals / denom
 
-        # Newly converged leading prefix of the active window; a pair's two
-        # positions share one residual, so the scan never stops between them.
-        nc = 0
-        while nc < ma and approximate_convergence[nc] <= tol:
-            nc += 1
-        if nc != ma and in_block[nc]:
-            raise RuntimeError(
-                "prefix scan split a conjugate pair: unequal pair residuals")
-        k_new = ka + nc
+            # Newly converged leading prefix of the active window; a pair's two
+            # positions share one residual, so the scan never stops between them.
+            nc = 0
+            while nc < ma and approximate_convergence[nc] <= tol:
+                nc += 1
+            if nc != ma and in_block[nc]:
+                raise RuntimeError(
+                    "prefix scan split a conjugate pair: unequal pair residuals")
+            k_new = ka + nc
 
-        for k in range(ka, min(k_new, nev)):
-            if history.matvecs[k] == 0:
-                history.matvecs[k] = total_matvecs
-                history.restarts[k] = restart + 1
-        rem = nev - ka
-        history.residual_trace.append(
-            float(np.max(approximate_convergence[:rem])) if rem > 0 else 0.0)
-
-        if k_new >= nev:
-            has_converged = True
-            for k in range(nev):
+            for k in range(ka, min(k_new, nev)):
                 if history.matvecs[k] == 0:
                     history.matvecs[k] = total_matvecs
                     history.restarts[k] = restart + 1
-            # A 2x2 block straddling the nev boundary cannot be cut: return
-            # nev+1 pairs (ARPACK's k/k+1 contract for real problems).
-            nev_ret = nev + 1 if in_block[nev - ka] else nev
-            cr = nev_ret - ka
-            Qp_full = np.zeros((m, nev_ret), dtype=H_host.dtype)
-            Qp_full[:ka, :ka] = np.eye(ka)
-            Qp_full[ka:, ka:] = Qa[:, :cr]
-            T_out = np.zeros((nev_ret, nev_ret), dtype=H_host.dtype)
-            T_out[:ka, :ka] = H_host[:ka, :ka]
-            if ka:
-                T_out[:ka, ka:] = H_host[:ka, ka:m] @ Qa[:, :cr]
-            T_out[ka:, ka:] = T2a[:cr, :cr]
-            ws.truncate(Qp_full, m, nev_ret)
-            if ka:
-                # Locked pairs froze in lock order; re-sort the converged
-                # output globally, as the no-locking path presents it.
-                T_out, Qs = _ordered_schur(T_out, sort_function, real)[:2]
-                ws.rotate_head(Qs, nev_ret)
-            break
+            rem = nev - ka
+            history.residual_trace.append(
+                float(np.max(approximate_convergence[:rem])) if rem > 0 else 0.0)
 
-        # Block driver: a saturated expansion without convergence (rank
-        # deficiency, e.g. a multiplicity beyond the reachable space).  The
-        # next expansion runs with a zero breakdown tolerance so that the
-        # block's rounding noise extends the space (the block analog of
-        # ARPACK's random restart); only repeated saturation with a stagnant
-        # residual trace is fatal.
-        reseed = False
-        if b > 1 and happy_breakdown and min(p, m) >= m:
-            saturated += 1
-            rt = history.residual_trace
-            if saturated >= 3 and len(rt) >= 3 and not rt[-1] < 0.5 * rt[-3]:
-                raise ValueError(
-                    f"Krylov expansion saturated at dimension {m} without "
-                    f"convergence (block rank deficiency); reduce "
-                    f"block_size or max_dim, or use the scalar driver")
-            reseed = True
-        else:
-            saturated = 0
+            if k_new >= nev:
+                has_converged = True
+                for k in range(nev):
+                    if history.matvecs[k] == 0:
+                        history.matvecs[k] = total_matvecs
+                        history.restarts[k] = restart + 1
+                # A 2x2 block straddling the nev boundary cannot be cut: return
+                # nev+1 pairs (ARPACK's k/k+1 contract for real problems).
+                nev_ret = nev + 1 if in_block[nev - ka] else nev
+                cr = nev_ret - ka
+                Qp_full = np.zeros((m, nev_ret), dtype=H_host.dtype)
+                Qp_full[:ka, :ka] = np.eye(ka)
+                Qp_full[ka:, ka:] = Qa[:, :cr]
+                T_out = np.zeros((nev_ret, nev_ret), dtype=H_host.dtype)
+                T_out[:ka, :ka] = H_host[:ka, :ka]
+                if ka:
+                    T_out[:ka, ka:] = H_host[:ka, ka:m] @ Qa[:, :cr]
+                T_out[ka:, ka:] = T2a[:cr, :cr]
+                ws.truncate(Qp_full, m, nev_ret)
+                if ka:
+                    # Locked pairs froze in lock order; re-sort the converged
+                    # output globally, as the no-locking path presents it.
+                    T_out, Qs = _ordered_schur(T_out, sort_function, real)[:2]
+                    ws.rotate_head(Qs, nev_ret)
+                break
 
-        # Truncation size.  Adaptive: keep the locked prefix plus half the
-        # unconverged window, at least ARPACK's nev + min(nconv, (m-nev)/2),
-        # rounded up to a quantum q.  q decides which Schur vectors are
-        # kept, so it stays the JAX package's: 1 on the host tier (which
-        # lands on ARPACK's restart counts), a third of the nev..max_dim
-        # span on a device (a few static shapes there).
-        if adaptive:
-            raw = max(k_new + max((m - k_new) // 2, 1),
-                      nev + min(k_new, max((m - nev) // 2, 1)))
-            q = 1 if ws.host else max(8, -(-(max_dim - nev) // 3))
-            pa = min(-(-raw // q) * q, m - 1)
-            pa = max(pa, min(k_new + 1, m - 1))     # window never empty
-        else:
-            pa = min(p, m) if happy_breakdown else p
-        ca = pa - ka
-        resolved = False
-        if b == 1 and in_block[ca]:      # never for a complex work dtype
-            # Keep pa fixed by relocating a 1x1 block across the cut.
-            try:
-                T2a, Qa = dense_tier.resolve_straddle(T2a, Qa, ca,
-                                                      min_keep=max(rem, nc))
-                resolved = True
-            except RuntimeError:
-                pass  # no prefix-safe relocation: step the cut instead
-            if resolved:
-                b_starts, b_sizes, in_block = _schur_blocks(T2a)
-        if in_block[ca] and not resolved:
-            # Step the cut by b (1 for the scalar driver), upward first; a
-            # block step can land on another pair, so keep stepping.
-            floor = max(rem, nc + 1, 1)   # never drop wanted/locked work
-            limit = ma if happy_breakdown else ma - 1
-            cand = ca
-            while cand + b <= limit and in_block[cand + b]:
-                cand += b
-            if cand + b <= limit and not in_block[cand + b]:
-                ca = cand + b
-            else:
-                cand = ca
-                while cand - b >= floor and in_block[cand - b]:
-                    cand -= b
-                if cand - b >= floor and not in_block[cand - b]:
-                    ca = cand - b
-                else:
+            # Block driver: a saturated expansion without convergence (rank
+            # deficiency, e.g. a multiplicity beyond the reachable space).  The
+            # next expansion runs with a zero breakdown tolerance so that the
+            # block's rounding noise extends the space (the block analog of
+            # ARPACK's random restart); only repeated saturation with a stagnant
+            # residual trace is fatal.
+            reseed = False
+            if b > 1 and happy_breakdown and min(p, m) >= m:
+                saturated += 1
+                rt = history.residual_trace
+                if saturated >= 3 and len(rt) >= 3 and not rt[-1] < 0.5 * rt[-3]:
                     raise ValueError(
-                        "Cannot truncate without splitting a conjugate "
-                        "pair; increase max_dim or p")
-            pa = ka + ca
+                        f"Krylov expansion saturated at dimension {m} without "
+                        f"convergence (block rank deficiency); reduce "
+                        f"block_size or max_dim, or use the scalar driver")
+                reseed = True
+            else:
+                saturated = 0
 
-        # Truncated projected matrix.  The rotation is block diagonal --
-        # identity on the locked prefix, Qa[:, :ca] on the active window.
-        Qp_full = np.zeros((m, pa), dtype=H_host.dtype)
-        Qp_full[:ka, :ka] = np.eye(ka)
-        Qp_full[ka:, ka:] = Qa[:, :ca]
-        H_new = np.zeros_like(H_host)
-        H_new[:ka, :ka] = H_host[:ka, :ka]
-        if ka:
-            H_new[:ka, ka:pa] = H_host[:ka, ka:m] @ Qa[:, :ca]
-        H_new[ka:pa, ka:pa] = T2a[:ca, :ca]
-        # Coupling row(s): the residual's projections rotated by the active
-        # rotation, with the newly converged prefix's entries (below
-        # tol*|lambda|) zeroed so those pairs decouple for good.
-        H_new[pa:pa + b, ka:pa] = H_host[m:m + b, ka:m] @ Qa[:, :ca]
-        H_new[pa:pa + b, :k_new] = 0.0
-        H_trunc_hp = H_new[: pa + b, :pa].copy()
-        prev_pa = pa
-        if hard_lock:
-            k_lock = k_new
+            # Truncation size.  Adaptive: keep the locked prefix plus half the
+            # unconverged window, at least ARPACK's nev + min(nconv, (m-nev)/2),
+            # rounded up to a quantum q.  q decides which Schur vectors are
+            # kept, so it stays the JAX package's: 1 on the host tier (which
+            # lands on ARPACK's restart counts), a third of the nev..max_dim
+            # span on a device (a few static shapes there).
+            if adaptive:
+                raw = max(k_new + max((m - k_new) // 2, 1),
+                          nev + min(k_new, max((m - nev) // 2, 1)))
+                q = 1 if ws.host else max(8, -(-(max_dim - nev) // 3))
+                pa = min(-(-raw // q) * q, m - 1)
+                pa = max(pa, min(k_new + 1, m - 1))     # window never empty
+            else:
+                pa = min(p, m) if happy_breakdown else p
+            ca = pa - ka
+            resolved = False
+            if b == 1 and in_block[ca]:      # never for a complex work dtype
+                # Keep pa fixed by relocating a 1x1 block across the cut.
+                try:
+                    T2a, Qa = dense_tier.resolve_straddle(T2a, Qa, ca,
+                                                          min_keep=max(rem, nc))
+                    resolved = True
+                except RuntimeError:
+                    pass  # no prefix-safe relocation: step the cut instead
+                if resolved:
+                    b_starts, b_sizes, in_block = _schur_blocks(T2a)
+            if in_block[ca] and not resolved:
+                # Step the cut by b (1 for the scalar driver), upward first; a
+                # block step can land on another pair, so keep stepping.
+                floor = max(rem, nc + 1, 1)   # never drop wanted/locked work
+                limit = ma if happy_breakdown else ma - 1
+                cand = ca
+                while cand + b <= limit and in_block[cand + b]:
+                    cand += b
+                if cand + b <= limit and not in_block[cand + b]:
+                    ca = cand + b
+                else:
+                    cand = ca
+                    while cand - b >= floor and in_block[cand - b]:
+                        cand -= b
+                    if cand - b >= floor and not in_block[cand - b]:
+                        ca = cand - b
+                    else:
+                        raise ValueError(
+                            "Cannot truncate without splitting a conjugate "
+                            "pair; increase max_dim or p")
+                pa = ka + ca
 
-        m_new = ws.restart(Qp_full, H_new, m, pa, 0.0 if reseed else tol)
+            # Truncated projected matrix.  The rotation is block diagonal --
+            # identity on the locked prefix, Qa[:, :ca] on the active window.
+            Qp_full = np.zeros((m, pa), dtype=H_host.dtype)
+            Qp_full[:ka, :ka] = np.eye(ka)
+            Qp_full[ka:, ka:] = Qa[:, :ca]
+            H_new = np.zeros_like(H_host)
+            H_new[:ka, :ka] = H_host[:ka, :ka]
+            if ka:
+                H_new[:ka, ka:pa] = H_host[:ka, ka:m] @ Qa[:, :ca]
+            H_new[ka:pa, ka:pa] = T2a[:ca, :ca]
+            # Coupling row(s): the residual's projections rotated by the active
+            # rotation, with the newly converged prefix's entries (below
+            # tol*|lambda|) zeroed so those pairs decouple for good.
+            H_new[pa:pa + b, ka:pa] = H_host[m:m + b, ka:m] @ Qa[:, :ca]
+            H_new[pa:pa + b, :k_new] = 0.0
+            H_trunc_hp = H_new[: pa + b, :pa].copy()
+            prev_pa = pa
+            if hard_lock:
+                k_lock = k_new
+            ws.restart(Qp_full, H_new, m, pa)
+        m_new = ws.expand(pa, 0.0 if reseed else tol)
         if checkpoint_path and (restart + 1) % max(checkpoint_every, 1) == 0:
             # The expansion only appended rows past pa + b: the head rows of
             # the expanded workspace are the restart-boundary state.

@@ -41,7 +41,7 @@ from ..device import check_matmul_precision, work_dtype
 from ..linop import cast_operator
 from ..ops.ortho import M_SQRT1_2, cgs_dgks, vector_norm
 from ..parallel.sharded import valid_rows
-from ..utils.profiling import phase_clock
+from ..utils.profiling import phase_clock, solve_span
 from . import refine as refinement
 from .decomposition import default_invariant_tol
 from .krylov_schur import (_operator_and_dtype, _start_rows, _workspace,
@@ -127,22 +127,24 @@ def _trl_device_loop(op, V0, tol, *, nev, p, max_dim, max_restarts, which,
     healthy = expand(0)
     conv, r, theta, trace = False, 0, None, []
     while not conv and healthy and r < max_restarts:
-        H = ws.H
-        Ha = H[:m, :m]
-        theta, S = torch.linalg.eigh((Ha + Ha.mH) * 0.5)    # ascending, real
-        order = _device_order(which, theta, m)
-        theta, S = theta[order], S[:, order]
-        coupling = H[m:m + b, :m]
-        res = torch.linalg.vector_norm(coupling @ S, dim=0)
-        rel = res / torch.clamp(theta.abs(), min=1e-30)
-        trace.append(rel[:nev].max())
-        Sp = S[:, :p].contiguous()
-        ws.truncate(Sp, m, p)
-        H2 = torch.zeros_like(H)
-        H2.diagonal()[:p] = theta[:p]
-        H2[p:p + b, :p] = coupling @ Sp
-        ws.set_h(H2)
-        conv = bool((rel[:nev] < tol).all())        # the one read per restart
+        with clock("restart") as turn:
+            turn.count = r
+            H = ws.H
+            Ha = H[:m, :m]
+            theta, S = torch.linalg.eigh((Ha + Ha.mH) * 0.5)  # ascending, real
+            order = _device_order(which, theta, m)
+            theta, S = theta[order], S[:, order]
+            coupling = H[m:m + b, :m]
+            res = torch.linalg.vector_norm(coupling @ S, dim=0)
+            rel = res / torch.clamp(theta.abs(), min=1e-30)
+            trace.append(rel[:nev].max())
+            Sp = S[:, :p].contiguous()
+            ws.truncate(Sp, m, p)
+            H2 = torch.zeros_like(H)
+            H2.diagonal()[:p] = theta[:p]
+            H2[p:p + b, :p] = coupling @ Sp
+            ws.set_h(H2)
+            conv = bool((rel[:nev] < tol).all())    # the one read per restart
         if not conv:
             healthy = expand(p)
         r += 1
@@ -166,6 +168,7 @@ def _sym_sort(which):
 SYM_SORTS = ("LA", "SA", "LM", "SM")
 
 
+@solve_span(lambda out: out[2].total_matvecs)
 def partial_eigh(
     A,
     nev,
@@ -332,61 +335,63 @@ def partial_eigh(
             raise ValueError(
                 f"Invariant subspace of dimension {m} < nev={nev} found")
 
-        H_host = ws.h_host()
-        if H_trunc_hp is not None:
-            H_host[: prev_pa + b, :prev_pa] = H_trunc_hp
-        H_active = H_host[:m, :m]
+        with clock("restart") as turn:
+            turn.count = restart
+            H_host = ws.h_host()
+            if H_trunc_hp is not None:
+                H_host[: prev_pa + b, :prev_pa] = H_trunc_hp
+            H_active = H_host[:m, :m]
 
-        # Rayleigh-Ritz on the Hermitian part of the projected matrix (it
-        # scrubs float32 rounding).
-        theta, S = np.linalg.eigh((H_active + H_active.conj().T) / 2)
-        order = np.asarray(sort_function(theta))
-        theta, S = theta[order], S[:, order]
+            # Rayleigh-Ritz on the Hermitian part of the projected matrix (it
+            # scrubs float32 rounding).
+            theta, S = np.linalg.eigh((H_active + H_active.conj().T) / 2)
+            order = np.asarray(sort_function(theta))
+            theta, S = theta[order], S[:, order]
 
-        pa = min(p, m) if happy_breakdown else p
-        if b > 1:
-            pa = min(-(-pa // b) * b, m)
-        Sp = S[:, :pa]
-        ws.truncate(Sp, m, pa)
+            pa = min(p, m) if happy_breakdown else p
+            if b > 1:
+                pa = min(-(-pa // b) * b, m)
+            Sp = S[:, :pa]
+            ws.truncate(Sp, m, pa)
 
-        H_new = np.zeros_like(H_host)
-        H_new[np.arange(pa), np.arange(pa)] = theta[:pa]
-        # The coupling block: the residual block's projections rotated by
-        # Sp (for b = 1 the arrowhead row).
-        H_new[pa:pa + b, :pa] = H_host[m:m + b, :m] @ Sp
-        H_trunc_hp = H_new[: pa + b, :pa].copy()
-        prev_pa = pa
+            H_new = np.zeros_like(H_host)
+            H_new[np.arange(pa), np.arange(pa)] = theta[:pa]
+            # The coupling block: the residual block's projections rotated by
+            # Sp (for b = 1 the arrowhead row).
+            H_new[pa:pa + b, :pa] = H_host[m:m + b, :m] @ Sp
+            H_trunc_hp = H_new[: pa + b, :pa].copy()
+            prev_pa = pa
 
-        # Residual estimates ||B S[:, i]|| / |theta_i|, B the coupling rows.
-        residuals = np.linalg.norm(H_host[m:m + b, :m] @ S, axis=0)
-        denom = np.abs(theta)
-        approximate_convergence = residuals / np.where(denom == 0, 1.0, denom)
+            # Residual estimates ||B S[:, i]|| / |theta_i|, B the coupling rows.
+            residuals = np.linalg.norm(H_host[m:m + b, :m] @ S, axis=0)
+            denom = np.abs(theta)
+            approximate_convergence = residuals / np.where(denom == 0, 1.0, denom)
 
-        for k in range(nev):
-            if approximate_convergence[k] <= tol:
-                history.matvecs[k] = total_matvecs
-                history.restarts[k] = restart + 1
-        history.residual_trace.append(
-            float(np.max(approximate_convergence[:nev])))
+            for k in range(nev):
+                if approximate_convergence[k] <= tol:
+                    history.matvecs[k] = total_matvecs
+                    history.restarts[k] = restart + 1
+            history.residual_trace.append(
+                float(np.max(approximate_convergence[:nev])))
 
-        has_converged = bool(np.all(approximate_convergence[:nev] < tol))
-        if has_converged and happy_breakdown:
-            history.matvecs[:] = np.maximum(history.matvecs, total_matvecs)
-            history.restarts[:] = np.maximum(history.restarts, restart + 1)
-        if not has_converged and happy_breakdown and pa >= m:
-            raise ValueError(
-                f"Krylov expansion saturated at dimension {m} without "
-                f"convergence (block rank deficiency); reduce block_size or "
-                f"max_dim, or use the scalar driver")
-        if has_converged:
-            theta_final = theta
-            break
+            has_converged = bool(np.all(approximate_convergence[:nev] < tol))
+            if has_converged and happy_breakdown:
+                history.matvecs[:] = np.maximum(history.matvecs, total_matvecs)
+                history.restarts[:] = np.maximum(history.restarts, restart + 1)
+            if not has_converged and happy_breakdown and pa >= m:
+                raise ValueError(
+                    f"Krylov expansion saturated at dimension {m} without "
+                    f"convergence (block rank deficiency); reduce block_size or "
+                    f"max_dim, or use the scalar driver")
+            if has_converged:
+                theta_final = theta
+                break
 
-        ws.set_h(H_new)
-        if selective:
-            # After a thick restart the leading pa + 1 rows are the
-            # compressed Ritz block; new vectors stay orthogonal to it.
-            ws.ortho = make_lanczos_selective_ortho(pa + 1)
+            ws.set_h(H_new)
+            if selective:
+                # After a thick restart the leading pa + 1 rows are the
+                # compressed Ritz block; new vectors stay orthogonal to it.
+                ws.ortho = make_lanczos_selective_ortho(pa + 1)
         m_new = ws.expand(pa, tol)
         total_matvecs += m_new - pa
         m = m_new

@@ -37,6 +37,7 @@ import torch
 
 from ..device import is_inexact, numpy_dtype, solver_dtype, torch_dtype
 from ..linop import CallableOperator, _require_device, as_operator
+from ..utils.profiling import phase_clock, solve_span
 from ..utils.sorting import sort_function_for
 from . import inner
 from .decomposition import default_invariant_tol
@@ -135,13 +136,17 @@ def _apply(op, x):
 
 def _counted_solve(solver, inner_tol, maxiter, stats, M=None):
     """``solve(matvec, b)`` by the named inner solver, counted into
-    ``stats`` (when not None)."""
+    ``stats`` (when not None); under ``ARNOLDI_PHASES`` each solve is the
+    span ``inner.solve``, its count the products it made."""
     solve_fn = _solver(solver)
     extra = {"restart": GMRES_RESTART} if solver == "gmres" else {}
+    clock = phase_clock()
 
     def solve(matvec, b):
-        x, info = solve_fn(matvec, b, tol=inner_tol, maxiter=maxiter, M=M,
-                           **extra)
+        with clock("inner.solve") as phase:
+            x, info = solve_fn(matvec, b, tol=inner_tol, maxiter=maxiter, M=M,
+                               **extra)
+            phase.count = info.matvecs
         if stats is not None:
             stats.solves += 1
             stats.inner_matvecs += info.matvecs
@@ -175,18 +180,20 @@ def _splu_inverse(A, sigma, dtype, stats, device):
     lu = splu((A_h.astype(hp) - sigma * sp.identity(n, dtype=hp,
                                                     format="csc")).tocsc())
     op_dtype = torch_dtype(dtype) if dtype is not None else solver_dtype(A_h.dtype)
+    clock = phase_clock()
 
     def host_solve(b):
         if stats is not None:
             stats.solves += 1
-        bh = b.cpu().numpy()
-        if np.iscomplexobj(bh) and not complex_lu:
-            # Real factorization, complex right-hand side: the parts apart.
-            x = (lu.solve(bh.real.astype(np.float64))
-                 + 1j * lu.solve(bh.imag.astype(np.float64)))
-        else:
-            x = lu.solve(bh.astype(hp))
-        return torch.from_numpy(x.astype(bh.dtype)).to(b.device)
+        with clock("inner.solve"):
+            bh = b.cpu().numpy()
+            if np.iscomplexobj(bh) and not complex_lu:
+                # Real factorization, complex right-hand side: the parts apart.
+                x = (lu.solve(bh.real.astype(np.float64))
+                     + 1j * lu.solve(bh.imag.astype(np.float64)))
+            else:
+                x = lu.solve(bh.astype(hp))
+            return torch.from_numpy(x.astype(bh.dtype)).to(b.device)
 
     return CallableOperator(host_solve, (n, n), op_dtype, nnz=int(A_h.nnz),
                             device=device)
@@ -485,6 +492,7 @@ def _schur_eigenpairs(gop, k, outer, *, tol, ncv, maxiter, ortho, dtype,
     return np.asarray(theta), vecs
 
 
+@solve_span()
 def eigs(A, k=6, *, which="LM", sigma=None, M=None, Minv=None, OPinv=None,
          tol=None, ncv=None, maxiter=1000, dtype=None, ortho="cgs_dgks",
          generator=None, v0=None, return_eigenvectors=True,
@@ -553,6 +561,7 @@ def _canonical_phase(vecs):
     return (vecs * phase.conj()[None, :]).real.contiguous()
 
 
+@solve_span()
 def eigsh(A, k=6, *, which="LM", sigma=None, M=None, Minv=None, OPinv=None,
           mode="normal", tol=None, ncv=None, maxiter=1000, dtype=None,
           generator=None, v0=None, return_eigenvectors=True,

@@ -24,13 +24,14 @@ import torch
 
 from ..device import torch_dtype
 from ..linop import GramOperator, as_operator, cast_operator, rmatmat
-from ..utils.profiling import phase_clock
+from ..utils.profiling import solve_span
 from .decomposition import default_invariant_tol
 from .lanczos import partial_eigh
 
 __all__ = ["svds", "gram_companions"]
 
 
+@solve_span()
 def svds(A, k=6, *, which="LM", sigma=None, tol=None, ncv=None,
          maxiter=1000, dtype=None, generator=None, v0=None, block_size=1,
          inner_solver="gmres", inner_tol=None, return_singular_vectors=True,
@@ -62,16 +63,13 @@ def svds(A, k=6, *, which="LM", sigma=None, tol=None, ncv=None,
         raise ValueError(
             f"which={which!r}: expected 'LM' (largest) or 'SM' (smallest)")
 
-    clock = phase_clock()     # no-op unless ARNOLDI_PHASES is set
-    with clock("svds.operator_build"):
-        op = as_operator(A, device=device)
-        n_rows, n_cols = op.shape
-        transposed = n_rows < n_cols
-        gram_dim = n_rows if transposed else n_cols
-        if companions is None:
-            companions = gram_companions(A, op) or (None,)
-        gram = GramOperator(op, *companions, transposed=transposed,
-                            nnz=op.nnz)
+    op = as_operator(A, device=device)
+    n_rows, n_cols = op.shape
+    transposed = n_rows < n_cols
+    gram_dim = n_rows if transposed else n_cols
+    if companions is None:
+        companions = gram_companions(A, op) or (None,)
+    gram = GramOperator(op, *companions, transposed=transposed, nnz=op.nnz)
     if v0 is not None and tuple(np.shape(v0)) != (gram_dim,):
         raise ValueError(f"v0 must have length {gram_dim}, got "
                          f"{tuple(np.shape(v0))}")
@@ -95,24 +93,21 @@ def svds(A, k=6, *, which="LM", sigma=None, tol=None, ncv=None,
     order = np.argsort(theta)            # scipy returns s ascending
     s = np.sqrt(theta[order])
     if not return_singular_vectors:
-        hist.phases = {**hist.phases, **clock.report()}
         return (s, hist) if return_history else s
 
-    with clock("svds.recover_side"):
-        W = W[:, torch.from_numpy(order).to(W.device)]
-        side = cast_operator(op, W.dtype)
-        safe = torch.from_numpy(np.where(s == 0, 1.0, s)).to(W)
-        if transposed:
-            # gram = A A^H: W holds left singular vectors; V = A^H U / s.
-            U = W
-            AhU = (cast_operator(gram.opT, W.dtype).matmat(U)
-                   if gram.opT is not None else rmatmat(side, U))
-            V = _renormalize(AhU / safe[None, :])
-        else:
-            # gram = A^H A: W holds right singular vectors; U = A V / s.
-            V = W
-            U = _renormalize(side.matmat(V) / safe[None, :])
-    hist.phases = {**hist.phases, **clock.report()}
+    W = W[:, torch.from_numpy(order).to(W.device)]
+    side = cast_operator(op, W.dtype)
+    safe = torch.from_numpy(np.where(s == 0, 1.0, s)).to(W)
+    if transposed:
+        # gram = A A^H: W holds left singular vectors; V = A^H U / s.
+        U = W
+        AhU = (cast_operator(gram.opT, W.dtype).matmat(U)
+               if gram.opT is not None else rmatmat(side, U))
+        V = _renormalize(AhU / safe[None, :])
+    else:
+        # gram = A^H A: W holds right singular vectors; U = A V / s.
+        V = W
+        U = _renormalize(side.matmat(V) / safe[None, :])
     out = (U, s, V.conj().T.contiguous())
     return out + (hist,) if return_history else out
 

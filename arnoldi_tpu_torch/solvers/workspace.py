@@ -112,17 +112,22 @@ class DeviceWorkspace:
         returns the dimension reached (less on breakdown).  With
         ``stop_at_breakdown=False`` no flag is read on the host and the
         return is the expansions' 0-d bool breakdown tensor."""
-        with self.clock("expand"):
+        with self.clock("expand") as phase:
             if self.b > 1:
                 self.V, self.H, jb = block_arnoldi_expand(
                     self.op, self.V, self.H, tol, start_block=start // self.b,
                     n_blocks=self.max_dim // self.b, b=self.b,
-                    stop_at_breakdown=stop_at_breakdown, mesh=self.mesh)
+                    stop_at_breakdown=stop_at_breakdown, mesh=self.mesh,
+                    clock=self.clock)
+                phase.count = ((jb if stop_at_breakdown else self.max_dim // self.b)
+                               - start // self.b)
                 return jb * self.b if stop_at_breakdown else jb
             self.V, self.H, m = arnoldi_expand(
                 self.op, self.V, self.H, tol, start_dim=start,
                 max_dim=self.max_dim, ortho=self.ortho,
-                stop_at_breakdown=stop_at_breakdown, mesh=self.mesh)
+                stop_at_breakdown=stop_at_breakdown, mesh=self.mesh,
+                clock=self.clock)
+            phase.count = (m if stop_at_breakdown else self.max_dim) - start
             return m
 
     def h_host(self):
@@ -140,11 +145,11 @@ class DeviceWorkspace:
             self.V, self.V_alt = _truncate(self.V, self.V_alt,
                                            self._tensor(Qp), m, p, self.b)
 
-    def restart(self, Qp, H_new, m, p, tol):
-        """Truncate to p rows, install the truncated H, expand again."""
+    def restart(self, Qp, H_new, m, p):
+        """Truncate to p rows and install the truncated H; the next
+        :meth:`expand` goes on from p."""
         self.truncate(Qp, m, p)
         self.set_h(H_new)
-        return self.expand(p, tol)
 
     def rotate_head(self, Qs, rows):
         """``V[:rows] = Qs^T V[:rows]``."""
@@ -180,6 +185,7 @@ class HostWorkspace:
         self.matvec = lambda v: A_h @ v
         self.engine = (host_engine.engine_for(A, np.float64, max_dim, ortho)
                        if self.dtype == np.float64 else None)
+        self._cycle = None      # a truncation the next expand fuses
         n = A.shape[0]
         self.V = np.zeros((max_dim + 1, n), dtype=self.dtype)
         self.V_alt = np.empty_like(self.V)
@@ -189,6 +195,15 @@ class HostWorkspace:
         self.V[:rows.shape[0]] = rows.cpu().numpy()
 
     def expand(self, start, tol):
+        if self._cycle is not None:
+            Qp, m, p = self._cycle
+            self._cycle = None
+            with self.clock("engine.cycle"):
+                out, self.H, m_new = self.engine.cycle(
+                    self.V, self.V_alt, self.H, Qp, m=m, pa=p, carry=1,
+                    max_dim=self.max_dim, tol=tol, ortho=self.ortho)
+            self.V, self.V_alt = out, self.V
+            return int(m_new)
         if self.engine is not None:
             with self.clock("engine.expand"):
                 self.V, self.H, m = self.engine.expand(
@@ -208,23 +223,19 @@ class HostWorkspace:
         self.H = np.array(H_new, dtype=self.dtype)
 
     def truncate(self, Qp, m, p):
-        with self.clock("host.truncate"):
-            self.V, self.V_alt = _truncate(self.V, self.V_alt,
-                                           np.asarray(Qp, self.dtype), m, p, 1)
+        self.V, self.V_alt = _truncate(self.V, self.V_alt,
+                                       np.asarray(Qp, self.dtype), m, p, 1)
 
-    def restart(self, Qp, H_new, m, p, tol):
-        """Truncate and expand again; with the engine one fused C call
-        (``CsrEngine.cycle``), as the JAX package's host tier does."""
+    def restart(self, Qp, H_new, m, p):
+        """Truncate to p rows and install the truncated H.  With the engine
+        the truncation waits for the next :meth:`expand`, which runs both
+        in one fused C call (``CsrEngine.cycle``), as the JAX package's
+        host tier does."""
         self.set_h(H_new)
         if self.engine is None:
             self.truncate(Qp, m, p)
-            return self.expand(p, tol)
-        with self.clock("engine.cycle"):
-            out, self.H, m_new = self.engine.cycle(
-                self.V, self.V_alt, self.H, Qp, m=m, pa=p, carry=1,
-                max_dim=self.max_dim, tol=tol, ortho=self.ortho)
-        self.V, self.V_alt = out, self.V
-        return int(m_new)
+        else:
+            self._cycle = (Qp, m, p)
 
     def rotate_head(self, Qs, rows):
         self.V[:rows] = Qs.T @ self.V[:rows]
