@@ -6,10 +6,12 @@ attribute (and by operand dtype in ``dtype_launches``).  :data:`KERNELS`
 lists them with the TPU kernel each replaces;
 a ``*_cols`` entry is the b-column form (b columns as the rows of a
 ``(b, n)`` array, each stored matrix value read once for all b) that the
-block driver uses.
+block driver uses.  ``cg_banded`` replaces no Pallas kernel: it is the
+whole CG solve of a shifted DIA operator in one launch, where the JAX
+package runs ``jax.scipy.sparse.linalg.cg``.
 """
 
-from . import ortho_fused, spmv_banded, spmv_bsr, spmv_ell
+from . import cg_banded, ortho_fused, spmv_banded, spmv_bsr, spmv_ell
 from ._build import build
 
 _DIA = ("arnoldi_tpu_torch/csrc/spmv_banded.cu",
@@ -41,6 +43,8 @@ KERNELS = {
     "project_update_norm": (ortho_fused.project_update_norm,
                             "arnoldi_tpu_torch/csrc/ortho_fused.cu",
                             "arnoldi_tpu/ops/pallas/ortho_fused.py:161"),
+    "cg_banded": (cg_banded.cg_banded, "arnoldi_tpu_torch/csrc/cg_banded.cu",
+                  "none (jax.scipy.sparse.linalg.cg)"),
 }
 
 

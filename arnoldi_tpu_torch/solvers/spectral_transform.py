@@ -11,6 +11,13 @@ unchanged; eigenvalues transform back as ``lambda = sigma + 1/theta``.
 instead, and every application copies ``b`` to the host and ``x`` back:
 the one path of this module that works on the host, and only when asked.
 
+A single-device ``BandedOperator`` of real dtype with a real shift, cg and
+no preconditioner takes the fused route instead: each inner solve is one
+launch of ``ops/kernels/cg_banded`` (the whole CG loop on the card, one
+host read a solve; on CPU tensors its plain version, the eager loop's
+bits), span ``inner.fused`` inside ``inner.solve``.  Every other case
+keeps the eager loop of ``solvers/inner.py``.
+
 A complex shift of a real operator makes the shifted product complex, as
 the JAX package's CPU backend makes every solve complex: the transformed
 operator is complex, so the outer solve is, and the real operator is
@@ -36,7 +43,8 @@ import numpy as np
 import torch
 
 from ..device import is_inexact, numpy_dtype, solver_dtype, torch_dtype
-from ..linop import CallableOperator, _require_device, as_operator
+from ..linop import BandedOperator, CallableOperator, _require_device, as_operator
+from ..ops.kernels.cg_banded import DTYPES as _FUSED_DTYPES, cg_banded
 from ..utils.profiling import phase_clock, solve_span
 from ..utils.sorting import sort_function_for
 from . import inner
@@ -134,6 +142,12 @@ def _apply(op, x):
     return op.matvec(x)
 
 
+def _count(stats, info):
+    if stats is not None:
+        stats.solves += 1
+        stats.inner_matvecs += info.matvecs
+
+
 def _counted_solve(solver, inner_tol, maxiter, stats, M=None):
     """``solve(matvec, b)`` by the named inner solver, counted into
     ``stats`` (when not None); under ``ARNOLDI_PHASES`` each solve is the
@@ -147,9 +161,38 @@ def _counted_solve(solver, inner_tol, maxiter, stats, M=None):
             x, info = solve_fn(matvec, b, tol=inner_tol, maxiter=maxiter, M=M,
                                **extra)
             phase.count = info.matvecs
-        if stats is not None:
-            stats.solves += 1
-            stats.inner_matvecs += info.matvecs
+        _count(stats, info)
+        return x
+
+    return solve
+
+
+def _fused(op, sigma, solver, M):
+    """Whether the inner solves take the fused route: cg with no
+    preconditioner on a single-device DIA operator (not a sharded or halo
+    one), real dtype and real shift."""
+    return (solver == "cg" and M is None and type(op) is BandedOperator
+            and op.dtype in _FUSED_DTYPES and not np.iscomplexobj(sigma))
+
+
+def _fused_solve(op, sigma, inner_tol, maxiter, stats, eager):
+    """``solve(b)`` on the fused route: one ``cg_banded`` call, counted into
+    ``stats``; under ``ARNOLDI_PHASES`` the span ``inner.solve`` (its count
+    the products) holds the span ``inner.fused`` (its count the
+    iterations).  A ``b`` of another dtype (a complex outer solve of the
+    real operator) goes to ``eager(b)``."""
+    clock = phase_clock()
+
+    def solve(b):
+        if b.dtype != op.dtype:
+            return eager(b)
+        with clock("inner.solve") as phase:
+            with clock("inner.fused") as fused:
+                x, info = cg_banded(op.bands, op.offsets, sigma, b.contiguous(),
+                                    tol=inner_tol, maxiter=maxiter)
+                fused.count = info.iterations
+            phase.count = info.matvecs
+        _count(stats, info)
         return x
 
     return solve
@@ -212,7 +255,9 @@ def shift_invert_operator(A, sigma, *, solver="bicgstab", inner_tol=1e-10,
         array, factorized once on the host.
     sigma : real or complex shift.
     solver : "bicgstab" (general), "gmres" (restart 80; robust for
-        indefinite shifts), "cg" (Hermitian definite) or "splu".
+        indefinite shifts), "cg" (Hermitian definite; one launch a solve on
+        a single-device DIA operator with a real shift and no ``M``) or
+        "splu".
     inner_tol, maxiter : inner-solve tolerance (keep it a couple of digits
         tighter than the outer one) and iteration budget (restart cycles
         for gmres); an inner solve that runs out stops where it is.
@@ -235,9 +280,13 @@ def shift_invert_operator(A, sigma, *, solver="bicgstab", inner_tol=1e-10,
     def shifted_mv(x):
         return torch.add(_apply(op, x), x, alpha=-sigma)   # one launch
 
-    si_op = CallableOperator(lambda b: solve(shifted_mv, b), (n, n),
-                             _shifted_dtype(op.dtype, sigma), nnz=op.nnz,
-                             device=op.device)
+    def apply(b):
+        return solve(shifted_mv, b)
+
+    if _fused(op, sigma, solver, M):
+        apply = _fused_solve(op, sigma, inner_tol, maxiter, stats, apply)
+    si_op = CallableOperator(apply, (n, n), _shifted_dtype(op.dtype, sigma),
+                             nnz=op.nnz, device=op.device)
     si_op.inner_stats = stats
     return si_op
 

@@ -14,7 +14,9 @@ nonzero before the last line is printed):
    single-column kernels, the b = 8 column forms of DIA, ELL and both BSR
    kernels, and BSR-8 on a matrix whose n is not a multiple of 8, the
    fused CGS passes on gmres's (81, 2^20) basis (n_active 1, 40, 80) and
-   DIA on the pencil's one-band mass matrix (b = 1 and 5); compute
+   DIA on the pencil's one-band mass matrix (b = 1 and 5), and the fused
+   CG solve (``cg_banded``) on laplace_2d(724) - 0.01 I beside the eager
+   loop it replaces; compute
    each kernel's bound (bytes over 3.35 TB/s or flops over the fp64 rate,
    whichever is larger) and time the one PyTorch call that computes the same
    function (cuSPARSE through ``torch.sparse``, cuBLAS) as its yardstick,
@@ -122,7 +124,7 @@ nonzero before the last line is printed):
     operator; the adjoint leg is the conjugate-transposed ELL), checked
     against ARPACK's ``svds`` and the triplets;
 26. solve X: ``eigsh(laplace_2d(724) as DIA, k=5, sigma=0.01, ncv=40,
-    inner_solver="cg")`` (``spmv_dia`` in every CG iteration; the outer
+    inner_solver="cg")`` (``cg_banded``, one launch an inner solve; the outer
     ``partial_eigh`` device loop with the fused CGS passes), checked
     against the exact values nearest sigma; once more under the profiler;
 27. solve Y: ``eigs(the scattered 2^20 matrix as ELL, k=5, sigma=1.7,
@@ -774,10 +776,84 @@ def phase_kernels(mats):
     sync()
     phase_gather_edges(rec, gen)
     sync()
+    phase_cg_banded(mats, rec, gen)
+    sync()
     for name, r in rec.items():
         if name not in ("spmv_dia_ext", "spmv_dia_ext_cols"):   # phase 40's
             print_time(name, r)
     return rec
+
+
+#: Solve X's inner solve as phase 1 holds it: the shift and the tolerance.
+CG_SIGMA, CG_TOL, CG_MAXITER = 0.01, 1e-10, 2000
+
+
+def phase_cg_banded(mats, rec, gen, device="cuda"):
+    """Phase 1, the fused CG solve (``cg_banded``, solve X's inner solve):
+    ``(laplace_2d(724) - 0.01 I) x = b`` from x0 = 0, tol 1e-10, in float64
+    and float32, x against the plain version (``inner.cg`` over the plain
+    shifted DIA product) on the same card tensors and the iteration counts
+    within one.  In float64 it times the kernel and the plain version, and
+    the eager loop the kernel replaces (``inner.cg`` over the DIA kernel:
+    about 12 launches and one host read an iteration) as its yardstick.  A
+    call is a whole solve, so each time is a solve's, and the enqueue time
+    is the host's wall of one (the count's read ends it).  ``device="cpu"``
+    rehearses it with the plain versions (stub ``cuda_ms``, ``device_ms``
+    and ``enqueue_us``)."""
+    import torch
+
+    from arnoldi_tpu_torch.linop import BandedOperator, cast_operator
+    from arnoldi_tpu_torch.ops.kernels import cg_banded as cgb
+    from arnoldi_tpu_torch.solvers import inner
+
+    dev = torch.device(device)
+    dia64 = BandedOperator.from_scipy(mats["laplace"], device=dev)
+    r = rec["cg_banded"]
+    for dtype in (torch.float64, torch.float32):
+        op = cast_operator(dia64, dtype)
+        k, n = op.bands.shape
+        b = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+
+        def kernel(op=op, b=b):
+            return cgb.cg_banded(op.bands, op.offsets, CG_SIGMA, b, tol=CG_TOL,
+                                 maxiter=CG_MAXITER)
+
+        def plain(op=op, b=b):
+            return cgb.cg_banded_plain(op.bands, op.offsets, CG_SIGMA, b,
+                                       tol=CG_TOL, maxiter=CG_MAXITER)
+
+        (x, info), (x_plain, info_plain) = kernel(), plain()
+        r.check(f"cg_banded DIA ({k}, {n}) - {CG_SIGMA} I, {info.iterations} its",
+                dtype, x, x_plain)
+        print(f"  cg_banded {str(dtype):<14} iterations {info.iterations} "
+              f"(plain {info_plain.iterations})")
+        if abs(info.iterations - info_plain.iterations) > 1:
+            fail(f"cg_banded {dtype}: {info.iterations} iterations, the plain "
+                 f"version {info_plain.iterations}")
+        if dtype != torch.float64:
+            continue
+
+        def eager(op=op, b=b):
+            def shifted(v):
+                return torch.add(op.matvec(v), v, alpha=-CG_SIGMA)
+
+            return inner.cg(shifted, b, tol=CG_TOL, maxiter=CG_MAXITER)[0]
+
+        r.time(lambda: kernel()[0], lambda: plain()[0])
+        # The least a solve must move is the bands and b read and x written
+        # once: its vectors stay in the L2 between iterations, so bytes an
+        # iteration at HBM's rate would not bound it.  Flops: ||b||^2, then
+        # an iteration's shifted product, two dots and three updates.
+        its = info.iterations
+        r.set_bound((k * n + 2 * n) * 8, 2 * n + its * (2 * k + 12) * n)
+        r.time_library("inner.cg over spmv_dia (the eager loop)", eager, x_plain)
+        per = {"kernel": (r.ms, r.dev_ms), "eager loop": (r.library_ms,
+                                                          r.library_dev_ms)}
+        print("  cg_banded an iteration: " + "; ".join(
+            f"{way} {1e3 * ev / its:.2f} us by events, "
+            + ("device not measured" if d is None else f"{1e3 * d / its:.2f} us device")
+            for way, (ev, d) in per.items()))
+    del dia64
 
 
 B_COLS = 8   # the block driver's b on the main path
@@ -953,13 +1029,16 @@ def phase_ell_edges(mats, rec, gen):
         times[L] = (device_ms(lambda: spmv_ell.ell_matvec(data64, cols, x)),
                     device_ms(lambda: spmv_ell.ell_matmat(data64, cols, X)))
         del data64, data, cols, X, x
+    def share(ms, bound_ms):   # device_ms is None where no event was recorded
+        return ("not measured" if ms is None else
+                f"{ms:.4f} ms ({100 * bound_ms / ms:.0f} % of bound {bound_ms:.4f})")
+
     for L, (one, eight) in times.items():
         nnz = n_rows * L
         b1 = bound(nnz * 12 + (n_rows + n_cols) * 8, 2 * nnz)[0]
         b8 = bound(nnz * 12 + B_COLS * (n_rows + n_cols) * 8, 2 * nnz * B_COLS)[0]
-        print(f"  ELL edge L={L:<3} float64, device time: spmv_ell {one:.4f} ms "
-              f"({100 * b1 / one:.0f} % of bound {b1:.4f}), b={B_COLS} {eight:.4f} ms "
-              f"({100 * b8 / eight:.0f} % of bound {b8:.4f})")
+        print(f"  ELL edge L={L:<3} float64, device time: spmv_ell {share(one, b1)}, "
+              f"b={B_COLS} {share(eight, b8)}")
 
     S = mats["symmetric"]
     op = EllOperator.from_scipy(S, device=dev)
@@ -2309,7 +2388,7 @@ def phase_complex(mats, references, counts, dcounts, refs, device="cuda"):
 
 #: The kernels each shift-invert solve of phases 26-31 must launch.
 SHIFT_INVERT_KERNELS = {
-    "X": ("spmv_dia", "masked_project", "project_update_norm"),
+    "X": ("cg_banded", "masked_project", "project_update_norm"),
     "Y": ("spmv_ell", "masked_project", "project_update_norm"),
     "Z": ("spmv_ell", "masked_project", "project_update_norm"),
     "svds_sigma": ("spmv_ell", "masked_project", "project_update_norm"),
@@ -4576,9 +4655,10 @@ def run_phases(mats, references, smi):
     hermitian = phase_hermitian(mats, counts, refs)
 
     final, final_dtypes = counts(), kernels.dtype_launch_counts()
-    # The DIA shard form runs on the sharded path (phases 41-44) alone.
+    # The DIA shard form runs on the sharded path (phases 41-44) alone, the
+    # fused CG on the shift-invert path (phases 26-31) alone.
     missing = [k for k, v in final.items() if v == 0
-               and k not in ("spmv_dia_ext", "spmv_dia_ext_cols")]
+               and k not in ("spmv_dia_ext", "spmv_dia_ext_cols", "cg_banded")]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     print(f"launches on the main path (phases 2-13): {final}")
@@ -4615,7 +4695,7 @@ def run_phases(mats, references, smi):
     si_wall = time.perf_counter() - t0
     si_counts = counts()
     idle = [k for k in ("spmv_dia", "spmv_ell", "masked_project",
-                        "project_update_norm") if si_counts[k] == 0]
+                        "project_update_norm", "cg_banded") if si_counts[k] == 0]
     if idle:
         fail(f"kernels of phases 26-31 never launched there: {idle}")
     print(f"launches on the shift-invert path (phases 26-31): {si_counts}")

@@ -180,7 +180,8 @@ CELLS = {
              {"workspace_setup", "trl.device_loop", "expand", "truncate"}),
     "sinv": (_sinv, lambda: matrices.laplace_2d(30),
              {"solve", "workspace_setup", "trl.device_loop", "expand",
-              "matvec", "ortho", "inner.solve", "restart", "truncate"},
+              "matvec", "ortho", "inner.solve", "inner.fused", "restart",
+              "truncate"},
              {"workspace_setup", "trl.device_loop", "expand", "truncate"}),
     "window": (_window, lambda: matrices.laplace_3d(12),
                {"solve", "filter.bounds", "filter.census", "filter.count_probe",
@@ -231,6 +232,12 @@ def test_each_cell_driver_opens_its_spans(phases_on, cell):
         assert len(inner) == extra["inner_solves"] == hist.total_matvecs
         assert sum(s.count for s in inner) == extra["inner_matvecs"]
         assert all(spans[s.parent].name == "matvec" for s in inner)
+        # a DIA operator, cg, no preconditioner: the fused route, its span
+        # inside each inner solve, its count the iterations
+        fused = by["inner.fused"]
+        assert len(fused) == len(inner)
+        assert all(spans[s.parent].name == "inner.solve"
+                   and s.count == spans[s.parent].count - 1 for s in fused)
 
 
 def test_a_nested_driver_opens_no_second_solve(phases_on):
