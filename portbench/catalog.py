@@ -13,7 +13,9 @@ named after it:
   ``why``, the limits of the comparison and how many solves a traced run
   profiles;
 * ``metrics/<metric>.py``: a per-layer metric's spans and reader;
-* ``entries/<entry>.py``: how to call one entry point of the program.
+* ``entries/<entry>.py``: how to call one entry point of the program;
+* ``spectra/<config>.json``: the stored spectrum of a configuration whose
+  matrix has no closed form (written by ``reference/spectrum.py``).
 
 ``BENCHMARK.json`` at the root of the checkout lists the cells and
 metrics; which per-layer metrics a cell reports follows from it.
@@ -24,6 +26,14 @@ import json
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+
+
+def load(path, mod_name):
+    """The Python file ``path`` run as a module named ``mod_name``."""
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 class Catalog:
@@ -66,15 +76,14 @@ class Catalog:
     def traffic(self, name):
         return self._json("traffic", name + ".json")
 
+    def spectrum(self, name):
+        return self._json("spectra", name + ".json")
+
     def _module(self, kind, name):
         path = self.bench / kind / (name + ".py")
         if not path.is_file():
             raise FileNotFoundError(f"no {path.relative_to(self.root)}")
-        mod_name = f"portbench_{kind}_" + name.replace(".", "_").replace("-", "_")
-        spec = importlib.util.spec_from_file_location(mod_name, path)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module
+        return load(path, f"portbench_{kind}_" + name.replace(".", "_").replace("-", "_"))
 
     def metric(self, name):
         return self._module("metrics", name)

@@ -3,11 +3,18 @@
 ``laplace_2d`` and ``laplace_3d`` are copied from
 ``arnoldi_tpu_torch/matrices.py`` (with ``laplace``, which both build on),
 so that a later change to the program cannot change the matrices the
-benchmark hands it.  They return SciPy CSR matrices on the host.
+benchmark hands it.  Any other generator is a file of its own,
+``matrices/<generator>.py``, whose ``generate(**args, dtype)`` is likewise
+a frozen copy.  They return SciPy CSR matrices on the host.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import scipy.sparse as sp
+
+from .catalog import load
 
 
 def laplace(n, dtype=None):
@@ -36,16 +43,29 @@ def laplace_3d(nx, ny=None, nz=None, dtype=None):
             + sp.kron(lz, sp.kron(Iy, Ix))).tocsr()
 
 
-#: The generators a configuration file may name (its ``generator`` key).
+#: The generators of this file a configuration file may name (its
+#: ``generator`` key); the others are files in :data:`FOLDER`.
 GENERATORS = {"laplace_2d": laplace_2d, "laplace_3d": laplace_3d}
+
+#: ``<generator>.py`` files, each exposing ``generate(**args, dtype)``.
+FOLDER = Path(__file__).resolve().parent / "matrices"
+
+_NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
+
+
+def generator(name):
+    """The generator ``name``: ``GENERATORS[name]``, else ``generate`` of
+    ``matrices/<name>.py``."""
+    if name in GENERATORS:
+        return GENERATORS[name]
+    path = FOLDER / f"{name}.py"
+    if not _NAME.fullmatch(name) or not path.is_file():
+        raise ValueError(f"unknown generator {name!r}; known: {sorted(GENERATORS)} "
+                         f"and {sorted(p.stem for p in FOLDER.glob('*.py'))}")
+    return load(path, "portbench_matrices_" + name.replace(".", "_").replace("-", "_")).generate
 
 
 def build(config):
-    """The configuration's matrix: ``GENERATORS[config["generator"]]``
-    called with ``config["args"]`` and the configuration's dtype."""
-    try:
-        gen = GENERATORS[config["generator"]]
-    except KeyError:
-        raise ValueError(f"unknown generator {config['generator']!r}; "
-                         f"known: {sorted(GENERATORS)}") from None
-    return gen(**config["args"], dtype=np.dtype(config["dtype"]))
+    """The configuration's matrix: its ``generator`` called with
+    ``config["args"]`` and the configuration's dtype."""
+    return generator(config["generator"])(**config["args"], dtype=np.dtype(config["dtype"]))

@@ -33,7 +33,7 @@ import numpy as np
 from .catalog import Catalog
 from . import generators
 from .peaks import peak
-from .reference.judge import Judge, verdict, worst
+from .reference.judge import cell_judge, verdict, worst
 from .spans import Recorder
 
 #: Top-level module names that may not be loaded by the time the window
@@ -298,7 +298,7 @@ def run(workload, seed, seconds, trace, *, root=None, started=None,
                 _say(err, f"{name}: nothing to read")
 
     # -- the comparison -------------------------------------------------------
-    judge = Judge(config, traffic["want"])
+    judge = cell_judge(catalog, cell)
     readings = []
     failed = len(errors)
     for i, answer in enumerate(answers):

@@ -44,7 +44,7 @@ def main(argv=None):
     from portbench.catalog import Catalog
     from portbench.harness import _host, solve_generator
     from portbench.reference.control import FAULTS, control_answer, fault_answer
-    from portbench.reference.judge import NUMBERS, Judge
+    from portbench.reference.judge import NUMBERS, cell_judge
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -55,7 +55,7 @@ def main(argv=None):
     entry = cat.entry(traffic["entry"])
     op = port.as_operator(generators.build(config), dtype=getattr(torch, config["dtype"]),
                           format=config["format"], device="cuda")
-    judge = Judge(config, traffic["want"])
+    judge = cell_judge(cat, cell)
 
     def emit(obj):
         print(json.dumps(obj), flush=True)

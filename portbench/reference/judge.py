@@ -20,6 +20,10 @@ answers a solve returned, as host float64 arrays:
   wanted one returned that no returned value stands for (a scalar Krylov
   space may hold one copy of a double eigenvalue, never skip one).  A
   window: the difference between the returned and the exact count.
+
+:func:`cell_judge` picks the judge of a cell: this one where the
+configuration's generator is a grid Laplacian, else
+:class:`.sparse.SparseJudge` on the configuration's stored spectrum.
 """
 
 import numpy as np
@@ -32,15 +36,18 @@ CLUSTER_TOL = 1e-12
 
 NUMBERS = ("value_err", "residual", "orth", "missing")
 
+#: The generators whose spectrum :class:`.stencil.Grid` knows in closed form.
+GRID_GENERATORS = ("laplace_2d", "laplace_3d")
+
 
 def want_key(want):
     """Sort key of a Krylov want: smaller is more wanted."""
     kind = want["want"]
     if kind == "LM":
         return lambda lam: -np.abs(lam)
-    if kind == "LA":
+    if kind in ("LA", "LR"):
         return lambda lam: -np.real(lam)
-    if kind == "SA":
+    if kind in ("SA", "SR"):
         return lambda lam: np.real(lam)
     if kind == "nearest":
         sigma = float(want["sigma"])
@@ -126,6 +133,17 @@ class Judge:
                 skipped = int(np.setdiff1d(ahead, near).size)
             out["missing"] = short + skipped
         return out
+
+
+def cell_judge(catalog, cell):
+    """The judge of ``cell`` (its ``workloads/<cell>.json``) in ``catalog``."""
+    config = catalog.config(cell["config"])
+    want = catalog.traffic(cell["traffic"])["want"]
+    if config["generator"] in GRID_GENERATORS:
+        return Judge(config, want)
+    from .sparse import SparseJudge
+
+    return SparseJudge(config, want, catalog.spectrum(cell["config"]))
 
 
 def worst(readings):

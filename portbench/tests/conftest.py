@@ -9,6 +9,8 @@ the ``cuda_device`` fixture.
 
 import json
 import shutil
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -68,3 +70,46 @@ def make_tiny_root(dest):
 @pytest.fixture(scope="session")
 def tiny_root(tmp_path_factory):
     return make_tiny_root(tmp_path_factory.mktemp("bench"))
+
+
+#: A configuration that brings its own generator and spectrum, as a new
+#: deployment does: ``mark(40)`` (n = 820) as ELL, ``partial_schur`` LR nev 5.
+#: Its limits lie 60 % of the way up, in log scale, from the program's
+#: largest reading on the CPU (14 seeds: value_err 4.20e-9, residual
+#: 9.29e-9, orth 1.58e-14) to the float32 control's (2.16e-8, 3.32e-8,
+#: 1.31e-8).
+MARK = {
+    "configs/mark-40.json": {
+        "name": "mark-40", "source": "Saad NMLEP 2nd ed. 2.5.1, Matrix Market NEP MARKOV",
+        "generator": "mark", "args": {"m": 40}, "format": "ell", "dtype": "float64",
+        "reduced": ["m"]},
+    "traffic/schur-lr-k5-m40.json": {
+        "entry": "partial_schur",
+        "args": {"nev": 5, "sort_function": "LR", "max_dim": 40,
+                 "stopping_criterion": 1e-08, "ortho": "cgs2", "max_restarts": 1000},
+        "warmup": {"stopping_criterion": 0.01},
+        "want": {"want": "LR", "k": 5}},
+    "workloads/mark40-schur-lr.json": {
+        "config": "mark-40", "traffic": "schur-lr-k5-m40", "chips": 1,
+        "why": "mark(40) ELL, partial_schur LR k 5 m 40: a non-symmetric solve",
+        "limits": {"value_err": 1e-08, "residual": 2e-08, "orth": 6e-11, "missing": 0}},
+}
+MARK_CELL = "mark40-schur-lr"
+
+
+def make_mark_root(dest):
+    """:func:`make_tiny_root` with the files of :data:`MARK` added and the
+    configuration's spectrum written by ``reference/spectrum.py``."""
+    dest = make_tiny_root(dest)
+    for name, data in MARK.items():
+        (dest / BENCH.name / name).write_text(json.dumps(data))
+    p = subprocess.run([sys.executable, str(BENCH / "reference" / "spectrum.py"),
+                        "--config", "mark-40", "--want", "LR", "--k", "15",
+                        "--root", str(dest)], capture_output=True, text=True, timeout=300)
+    assert p.returncode == 0, p.stderr[-3000:]
+    return dest
+
+
+@pytest.fixture(scope="session")
+def mark_root(tmp_path_factory):
+    return make_mark_root(tmp_path_factory.mktemp("mark"))

@@ -37,3 +37,50 @@ def test_stencil_and_spectrum(gen, args):
         v = grid.eigenvector(modes[i])
         np.testing.assert_allclose(A @ v, vals[i] * v, atol=1e-12)
         assert abs(np.linalg.norm(v) - 1) < 1e-14
+
+
+def _mark_loop(m):
+    """``mark(m)`` state by state, as arnoldi-py's generator builds it:
+    from (i, j), north and east with ``pd`` (doubled on the i = 0 and j = 0
+    edges), south and west with ``pu``."""
+    index = {}
+    for i in range(m):
+        for j in range(m - i):
+            index[i, j] = len(index)
+    cst = 0.5 / (m - 1)
+    A = np.zeros((len(index), len(index)))
+    for (i, j), ix in index.items():
+        pd, pu = cst * (i + j + 1), 0.5 - cst * (i + j - 1)
+        if j < m - i - 1:
+            A[ix, index[i, j + 1]] = pd * (2.0 if i == 0 else 1.0)
+            A[ix, index[i + 1, j]] = pd * (2.0 if j == 0 else 1.0)
+        if j > 0:
+            A[ix, index[i, j - 1]] = pu
+        if i > 0:
+            A[ix, index[i - 1, j]] = pu
+    return A
+
+
+@pytest.mark.parametrize("m", [2, 3, 10, 100])
+def test_mark_matches_the_program_and_the_reference(m):
+    a = generators.build({"generator": "mark", "args": {"m": m}, "dtype": "float64"})
+    b = matrices.mark(m)
+    for name in ("indptr", "indices", "data"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    assert a.shape == b.shape
+    if m <= 10:
+        np.testing.assert_array_equal(a.toarray(), _mark_loop(m))
+    if m == 2:       # arnoldi-py's golden matrix
+        np.testing.assert_array_equal(a.toarray(), [[0, 1, 1], [0.5, 0, 0], [0.5, 0, 0]])
+
+
+def test_mark_1000_is_the_deployment_size():
+    a = generators.build({"generator": "mark", "args": {"m": 1000}, "dtype": "float64"})
+    assert a.shape == (500_500, 500_500) and a.nnz == 1_998_000
+    assert np.diff(a.indptr).max() <= 4
+
+
+@pytest.mark.parametrize("name", ["no_such_generator", "../generators", "mark/x"])
+def test_an_unknown_generator_is_refused(name):
+    with pytest.raises(ValueError, match="unknown generator"):
+        generators.generator(name)

@@ -42,5 +42,6 @@ def test_a_run_loads_no_jax(tmp_path):
 
 def test_the_reference_loads_nothing_of_the_program():
     loaded = _modules_after("import portbench.reference.judge, "
-                            "portbench.reference.control, portbench.reference.stencil")
+                            "portbench.reference.control, portbench.reference.stencil, "
+                            "portbench.reference.sparse, portbench.reference.spectrum")
     assert not loaded & {"arnoldi_tpu_torch", "arnoldi_tpu", "jax", "torch"}

@@ -11,7 +11,7 @@ import pytest
 from portbench.catalog import Catalog
 from portbench.harness import run
 
-from .conftest import ROOT
+from .conftest import MARK_CELL, ROOT
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
 DEVICE_KEYS = {"platform", "kind", "count", "memory_peak_bytes"}
@@ -76,3 +76,13 @@ def test_a_short_run_on_the_card(cuda_device):
                        text=True, timeout=600)
     assert p.returncode == 0, p.stderr[-2000:]
     assert json.loads(p.stdout.strip().splitlines()[-1])["correct"] is True
+
+
+@pytest.mark.cuda
+def test_the_tiny_mark_cell_on_the_card(cuda_device, mark_root):
+    out = io.StringIO()
+    assert run(MARK_CELL, 2**33 + 5, 0.01, False, root=mark_root, out=out,
+               err=io.StringIO()) == 0
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert line["correct"] is True, line["checks"]
+    assert line["device"]["platform"] == "gpu"
