@@ -831,15 +831,17 @@ def eigsh_filtered(
                 "degree": degree, "sweeps": n_sweeps, "f64_sweeps": 0,
                 "f64_matvecs": 0}
     if do_refine:
-        vals_h, rows, _, pick, r_sweeps, r_mv = _refine_filtered(
-            refinement.exact_operator(op_src), X, win=(lo_f, hi_f),
-            own=(a_m, b_m), lmin=lmin, lmax=lmax, degree=degree,
-            tol=tol_target, scale=scale, nev=nev, history=history,
-            # sharper float64 Ritz values may move a cut-straddling
-            # pair out of the owned window: require most of the
-            # coarse inside count, not all of it
-            min_inside=(int(np.ceil(0.8 * inside.size)) if all_inside
-                        else (nev or 0)), mesh=mesh)
+        with clock("refine.filter") as phase:
+            vals_h, rows, _, pick, r_sweeps, r_mv = _refine_filtered(
+                refinement.exact_operator(op_src), X, win=(lo_f, hi_f),
+                own=(a_m, b_m), lmin=lmin, lmax=lmax, degree=degree,
+                tol=tol_target, scale=scale, nev=nev, history=history,
+                # sharper float64 Ritz values may move a cut-straddling
+                # pair out of the owned window: require most of the
+                # coarse inside count, not all of it
+                min_inside=(int(np.ceil(0.8 * inside.size)) if all_inside
+                            else (nev or 0)), mesh=mesh)
+            phase.count = r_mv
         matvecs += r_mv
         n_sweeps += r_sweeps
         geometry.update(f64_sweeps=r_sweeps, f64_matvecs=r_mv)

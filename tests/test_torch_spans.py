@@ -240,6 +240,34 @@ def test_each_cell_driver_opens_its_spans(phases_on, cell):
                    and s.count == spans[s.parent].count - 1 for s in fused)
 
 
+@pytest.mark.parametrize("dtype, refine, tol, refined", [
+    (torch.float32, "auto", 1e-8, True),
+    (torch.float32, None, 1e-5, False),
+    (torch.float64, "auto", 1e-8, False),
+], ids=["float32-refined", "float32-unrefined", "float64"])
+def test_refine_filter_opens_once_a_refined_slice(phases_on, dtype, refine, tol,
+                                                   refined):
+    """The float64 continuation of a float32 filter is one ``refine.filter``
+    span a slice, inside the call's ``solve``, its count the slice's
+    float64 matvecs; an unrefined slice opens none."""
+    op = port.as_operator(matrices.laplace_3d(12), device="cpu")
+    vals, V, hist = port.eigsh_window(op, (-11.0, -10.5), tol=tol, max_slice=12,
+                                      dtype=dtype, refine=refine,
+                                      generator=torch.Generator().manual_seed(3))
+    assert len(hist.slices) > 1 and len(vals) > 0
+    spans = _closed()
+    (solve,) = _by_name(spans)["solve"]
+    found = _by_name(spans).get("refine.filter", [])
+    if not refined:
+        assert found == [] and "refine.filter" not in hist.phases
+        assert all(g["f64_matvecs"] == 0 for g in hist.slices)
+        return
+    assert [s.count for s in found] == [g["f64_matvecs"] for g in hist.slices]
+    assert all(s.count > 0 and spans[s.parent] == solve for s in found)
+    assert hist.phases["refine.filter"]["calls"] == len(hist.slices)
+    assert V.dtype == torch.float64
+
+
 def test_a_nested_driver_opens_no_second_solve(phases_on):
     """``eigsh`` into ``partial_eigh``, ``svds`` into ``partial_eigh``."""
     op = port.as_operator(matrices.laplace_2d(12), device="cpu")
