@@ -8,10 +8,13 @@ a ``*_cols`` entry is the b-column form (b columns as the rows of a
 ``(b, n)`` array, each stored matrix value read once for all b) that the
 block driver uses.  ``cg_banded`` replaces no Pallas kernel: it is the
 whole CG solve of a shifted DIA operator in one launch, where the JAX
-package runs ``jax.scipy.sparse.linalg.cg``.
+package runs ``jax.scipy.sparse.linalg.cg``.  Nor does ``cheby_banded``:
+the Chebyshev filter's degree step over a DIA operator in one launch (the
+b-column kernel with the recurrence as its epilogue), a fusion the JAX
+package gets from XLA.
 """
 
-from . import cg_banded, ortho_fused, spmv_banded, spmv_bsr, spmv_ell
+from . import cg_banded, cheby_banded, ortho_fused, spmv_banded, spmv_bsr, spmv_ell
 from ._build import build
 
 _DIA = ("arnoldi_tpu_torch/csrc/spmv_banded.cu",
@@ -45,6 +48,9 @@ KERNELS = {
                             "arnoldi_tpu/ops/pallas/ortho_fused.py:161"),
     "cg_banded": (cg_banded.cg_banded, "arnoldi_tpu_torch/csrc/cg_banded.cu",
                   "none (jax.scipy.sparse.linalg.cg)"),
+    "cheby_banded": (cheby_banded.cheby_banded, _DIA[0],
+                     "none (XLA fuses the recurrence: "
+                     "arnoldi_tpu/solvers/filtered.py:181)"),
 }
 
 

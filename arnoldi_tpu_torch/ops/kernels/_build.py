@@ -61,7 +61,14 @@ _SIGNATURES = {
     "arn_masked_project": [_p, _p, _p, _p, _p, _i64, _i32, _i32, _i32, _i32, _p],
     # Vt, w, c, w_out, partials, norm_sq, n, n_active, n_blocks, stream
     "arn_project_update_norm": [_p, _p, _p, _p, _p, _p, _i64, _i32, _i32, _p],
+    # bands, x (T_j), prev (T_{j-1}), out (T_{j+1}), y, n, k, offsets (host
+    # int64[k]), nb, c, scale, c0, coef, first, stream
+    "arn_cheby_dia": [_p, _p, _p, _p, _p, _i64, _i32, _p, _i32, ctypes.c_double,
+                      ctypes.c_double, ctypes.c_double, ctypes.c_double, _i32,
+                      _p],
 }
+#: The entry points with real forms alone (every other has all of SUFFIXES).
+_REAL_ONLY = ("arn_cheby_dia",)
 
 
 def _sources():
@@ -141,7 +148,8 @@ def library():
             _build_locked()
             lib = ctypes.CDLL(str(LIB_PATH))
             for name, argtypes in _SIGNATURES.items():
-                for suffix in SUFFIXES.values():
+                for suffix in (("f32", "f64") if name in _REAL_ONLY
+                               else SUFFIXES.values()):
                     fn = getattr(lib, f"{name}_{suffix}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int

@@ -9,11 +9,14 @@ converges to the pairs inside the window, each sweep ``degree`` products
 of the operator with the whole ``(s, n)`` row block (``op.matmat_rows``:
 the b-column kernels at b = s on the card).
 
-The three-term recurrence runs in place in eager PyTorch: each step is one
-b-column product and four elementwise passes over ``(s, n)`` blocks, with
-Python-float coefficients and no host read.  Every ``(s, s)`` Cholesky and
-``eigh`` runs on the host in float64 (``_host_whiten``'s escalating shift),
-as in the JAX package: one ``(s, s)`` copy a factorization.
+The three-term recurrence runs with Python-float coefficients and no host
+read.  On a single-device real DIA operator each degree step is one launch
+(``ops/kernels/cheby_banded``: the b-column kernel with the recurrence as
+its epilogue); on every other operator it runs in place in eager PyTorch,
+one b-column product and four elementwise passes over ``(s, n)`` blocks.
+Every ``(s, s)`` Cholesky and ``eigh`` runs on the host in float64
+(``_host_whiten``'s escalating shift), as in the JAX package: one ``(s,
+s)`` copy a factorization.
 
 The geometry is the JAX package's to the last rung: the filter degree
 rounds up to ``_degree_rung``'s ladder (the degree is the polynomial), soft
@@ -56,7 +59,9 @@ import scipy.linalg as sla
 import torch
 
 from ..device import check_matmul_precision, solver_dtype, torch_dtype
-from ..linop import FORMAT_OPERATORS, CallableOperator, cast_operator
+from ..linop import FORMAT_OPERATORS, BandedOperator, CallableOperator, cast_operator
+from ..ops.kernels.cheby_banded import (DTYPES as _FUSED_DTYPES, _affine,
+                                        cheby_banded, cheby_recurrence)
 from ..ops.ortho import _reduce, block_cgs2
 from ..parallel.mesh import local_rows
 from ..parallel.sharded import check_operator_mesh, operator_mesh, shard_operator
@@ -228,30 +233,29 @@ def _auto_degree(lmin, lmax, sin_eff, delta_half, cap=40000):
     return int(min(_degree_rung(max(N, 16)), cap))
 
 
-def _affine(op, T, c, scale):
-    """``(A T - c T) * scale`` for the row block ``T``: the b-column product
-    and two in-place passes over its output."""
-    AT = op.matmat_rows(T)
-    return AT.sub_(T, alpha=c).mul_(scale)
+def _fused(op, X):
+    """Whether the filter takes the fused route: a single-device DIA
+    operator (not a sharded or halo one) of real dtype, ``X`` of its dtype
+    on the card."""
+    return (type(op) is BandedOperator and op.dtype in _FUSED_DTYPES
+            and X.dtype == op.dtype and X.is_cuda)
 
 
 def cheby_filter(op, X, coeffs, lmin, lmax):
-    """``p(A)`` applied to the rows of ``X`` ``(s, n)``: the recurrence
-    ``T_{j+1} = 2 (A T_j - c T_j) / e - T_{j-1}``, ``Y += coeffs[j]
-    T_{j+1}``, one ``op.matmat_rows`` a degree over the whole block.  Each
-    step writes into the product's output and ``Y`` in place (no other
-    ``(s, n)`` tensor); ``X`` is not modified."""
-    coeffs = [float(x) for x in coeffs]
-    N = len(coeffs) - 1
-    c = 0.5 * (lmax + lmin)
-    inv_e = 2.0 / (lmax - lmin)
-    T_prev, T = X, _affine(op, X, c, inv_e)
-    Y = torch.mul(X, coeffs[0]).add_(T, alpha=coeffs[1])
-    for j in range(2, N + 1):
-        T_next = _affine(op, T, c, 2.0 * inv_e).sub_(T_prev)
-        Y.add_(T_next, alpha=coeffs[j])
-        T_prev, T = T, T_next
-    return Y
+    """``p(A)`` applied to the rows of ``X`` ``(s, n)``
+    (``ops/kernels/cheby_banded.cheby_recurrence``); ``X`` is not
+    modified.  A single-device real DIA operator with ``X`` on the card
+    takes the fused route, ``ops/kernels/cheby_banded`` (one launch a
+    degree step), under ``ARNOLDI_PHASES`` in the span ``filter.fused``
+    (its count the degree).  Every other operator, and CPU tensors, run
+    the eager recurrence over ``op.matmat_rows``."""
+    if _fused(op, X):
+        with phase_clock()("filter.fused") as phase:
+            Y = cheby_banded(op.bands, op.offsets, X.contiguous(), coeffs,
+                             lmin, lmax)
+            phase.count = len(coeffs) - 1
+        return Y
+    return cheby_recurrence(op.matmat_rows, X, coeffs, lmin, lmax)
 
 
 def _rademacher(probes, n, dtype, device, generator, mesh=None):
@@ -277,11 +281,11 @@ def _kpm_moments(op, Z, lmin, lmax, degree, mesh=None):
     def moment(j, T):
         mu[j] = torch.dot(z, T.reshape(-1)) / probes
 
-    T_prev, T = Z, _affine(op, Z, c, inv_e)
+    T_prev, T = Z, _affine(op.matmat_rows, Z, c, inv_e)
     moment(0, Z)
     moment(1, T)
     for j in range(2, int(degree) + 1):
-        T_next = _affine(op, T, c, 2.0 * inv_e).sub_(T_prev)
+        T_next = _affine(op.matmat_rows, T, c, 2.0 * inv_e).sub_(T_prev)
         moment(j, T_next)
         T_prev, T = T, T_next
     return _reduce(mu, mesh).cpu().numpy().astype(np.float64)

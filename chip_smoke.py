@@ -155,8 +155,9 @@ taken against the spectrum's largest magnitude, not the small values a
 shift-invert solve finds (``PERF.md`` §2).
 32. ``eigsh_window(laplace_3d(64), (-11.93, -11.89), tol=1e-8)`` (n =
     262,144, DIA, float64): the KPM census, then one ``eigsh_filtered``
-    slice after another, each filter step one ``spmv_dia_cols`` launch at
-    b = the slice's s; every one of the 60 exact values inside the window
+    slice after another, each filter step one ``cheby_banded`` launch (the
+    b-column kernel with the recurrence as its epilogue) at b = the
+    slice's s; every one of the 60 exact values inside the window
     within 1e-9, ``||Av - lambda v|| / max(|lmin|, |lmax|) <= 1e-7``,
     vectors orthonormal within 1e-10 inside a slice and, across slices,
     ``|<v_i, v_j>| <= (||r_i|| + ||r_j||) / |lambda_i - lambda_j|`` (an
@@ -267,9 +268,14 @@ slice's s and 8 x 37 + 3) in float64 and float32 (every column of both
 b-column kernels bit for bit against the single-column kernel) and timed
 at b = s beside their bound and cuSPARSE's SpMM (DIA in float64 with both
 enqueue times, ELL in float32 and float64); ten profiled ELL products at
-phase 33's s must show one kernel a call; and one sweep of phase 32's
-first slice (float64, DIA) and one of phase 33's geometry (float32, ELL)
-run under the profiler (device time by kernel family, busy share).
+phase 33's s must show one kernel a call; the fused Chebyshev step
+(``cheby_banded``) on laplace_3d(64) at the widest slice's s, float64 and
+float32: a degree-24 filter against its plain version, one launch a
+step, and a later step timed beside its bound (the bands and five block
+passes), its plain version and the eager five-launch step; and one sweep
+of phase 32's first slice (float64, DIA) and one of phase 33's geometry
+(float32, ELL) run under the profiler (device time by kernel family,
+busy share).
 
 Solves M, N and O run twice and must count the same matvecs both times;
 Q, R, T and X run once more under the profiler. The complex solves',
@@ -779,7 +785,8 @@ def phase_kernels(mats):
     phase_cg_banded(mats, rec, gen)
     sync()
     for name, r in rec.items():
-        if name not in ("spmv_dia_ext", "spmv_dia_ext_cols"):   # phase 40's
+        # phase 40's; the Chebyshev step's after phase 34 (phase_cheby_banded)
+        if name not in ("spmv_dia_ext", "spmv_dia_ext_cols", "cheby_banded"):
             print_time(name, r)
     return rec
 
@@ -2652,8 +2659,8 @@ def check_transformed(label, A, vals, V, want, scale):
 FILTER_WINDOW_64 = (-11.93, -11.89)   # 60 values of laplace_3d_eigen(64)
 FILTER_WINDOW_48 = (-11.80, -11.77)   # 36 values of laplace_3d_eigen(48)
 FILTERED_KERNELS = {   # solve: {dtype: the kernels it must launch in it}
-    "32": {"float64": ("spmv_dia_cols", "spmv_dia", "masked_project",
-                       "project_update_norm")},
+    "32": {"float64": ("cheby_banded", "spmv_dia_cols", "spmv_dia",
+                       "masked_project", "project_update_norm")},
     "33": {"float32": ("spmv_ell_cols", "spmv_ell", "masked_project",
                        "project_update_norm"),
            "float64": ("spmv_ell_cols",)},
@@ -2947,6 +2954,7 @@ def filter_sweep_split(op, geometry, mesh=None, warm=True):
             continue
         name = ev.name().lower()
         key = (dia if "spmv_dia" in name else
+               "cheby_dia_cols" if "cheby_dia" in name else
                "spmv_ell_cols" if "spmv_ell" in name else
                "memcpy" if "memcpy" in name else
                "elementwise" if "elementwise" in name or "vectorized" in name else
@@ -4437,6 +4445,90 @@ class _Hist:
         self.residual_trace = [0.0] * restarts
 
 
+#: The fused Chebyshev step's timing: calls of these two degrees, whose
+#: difference is CHEBY_DEGREES[1] - CHEBY_DEGREES[0] later steps.
+CHEBY_DEGREES = (1, 17)
+CHEBY_WINDOW, CHEBY_BOUNDS = (-11.93, -11.89), (-12.2, 0.2)
+
+
+def phase_cheby_banded(mats, widths, gen, device="cuda"):
+    """Phase 1 for the fused Chebyshev step (``cheby_banded``, after phase
+    34 with ``phase_filter_kernels``): on laplace_3d(64) at the g = 64
+    slice's widest s (297 by default), in float64 and float32, the filter
+    of degree 24 against its plain version (the eager recurrence over the
+    plain product) on the same card tensors, one launch a degree step; then
+    a later degree step timed by the difference of two calls (degrees
+    ``CHEBY_DEGREES``: CUDA events, profiler device time, host enqueue) beside
+    its bound (the bands and five block passes: T_j and T_{j-1} read,
+    T_{j+1} written, Y read and written), the plain version's step and the
+    eager five-launch step it replaces (the b-column product and four
+    elementwise passes) as the yardstick, and the product alone.  Returns
+    ``{record name: KernelRecord}``.  ``device="cpu"`` rehearses it with
+    the plain version (stub ``cuda_ms``, ``device_ms`` and
+    ``enqueue_us``)."""
+    import torch
+
+    from arnoldi_tpu_torch.linop import BandedOperator, cast_operator
+    from arnoldi_tpu_torch.ops import kernels
+    from arnoldi_tpu_torch.ops.kernels import cheby_banded as cb
+    from arnoldi_tpu_torch.solvers import filtered as pf
+
+    dev = torch.device(device)
+    op64 = BandedOperator.from_scipy(mats["laplace3d64"], device=dev)
+    b = max(widths["dia"]) if widths.get("dia") else 297
+    lo, hi = CHEBY_BOUNDS
+    d1, d2 = CHEBY_DEGREES
+    recs = {}
+    for dtype, name in ((torch.float64, "cheby_banded:filter"),
+                        (torch.float32, "cheby_banded:filter_f32")):
+        op = cast_operator(op64, dtype)
+        k, n = op.bands.shape
+        item = torch.empty((), dtype=dtype).element_size()
+        X = torch.randn(b, n, generator=gen, device=dev, dtype=dtype)
+        r = recs[name] = KernelRecord(dtype)
+        coeffs = pf.jackson_cheby_coeffs(*CHEBY_WINDOW, lo, hi, 24)
+        before = kernels.launch_counts()["cheby_banded"]
+        Y = cb.cheby_banded(op.bands, op.offsets, X, coeffs, lo, hi)
+        launches = kernels.launch_counts()["cheby_banded"] - before
+        if dev.type == "cuda" and launches != 24:
+            fail(f"cheby_banded {dtype}: {launches} launches for degree 24")
+        r.check(f"cheby_banded DIA {tuple(op.bands.shape)} b={b} degree 24",
+                dtype, Y, cb.cheby_banded_plain(op.bands, op.offsets, X,
+                                                 coeffs, lo, hi))
+        del Y
+        calls = {deg: pf.jackson_cheby_coeffs(*CHEBY_WINDOW, lo, hi, deg)
+                 for deg in (d1, d2)}
+
+        def ways(deg, coeffs=calls, op=op, X=X):
+            c = coeffs[deg]
+            return {"kernel": lambda: cb.cheby_banded(op.bands, op.offsets, X, c, lo, hi),
+                    "plain": lambda: cb.cheby_banded_plain(op.bands, op.offsets, X,
+                                                           c, lo, hi),
+                    "eager": lambda: cb.cheby_recurrence(op.matmat_rows, X, c, lo, hi)}
+
+        def step(way, timer):
+            t1, t2 = timer(ways(d1)[way]), timer(ways(d2)[way])
+            return None if t1 is None or t2 is None else (t2 - t1) / (d2 - d1)
+
+        r.ms, r.dev_ms = step("kernel", cuda_ms), step("kernel", device_ms)
+        r.plain_ms = step("plain", lambda fn: cuda_ms(fn, reps=3, warmup=1))
+        r.enqueue_us = step("kernel", lambda fn: enqueue_us(fn, calls=20))
+        r.set_bound((k * n + 5 * b * n) * item, (2 * k + 6) * b * n)
+        r.library = "the eager step (spmv_dia_cols and four elementwise passes)"
+        r.library_ms, r.library_dev_ms = step("eager", cuda_ms), step("eager", device_ms)
+        product = cuda_ms(lambda: op.matmat_rows(X))
+        print(f"  {name}: a later step {r.ms:.4f} ms by events, device "
+              + ("not measured" if r.dev_ms is None else f"{r.dev_ms:.4f} ms")
+              + f"; the eager step {r.library_ms:.4f} ms; the product alone "
+              f"(spmv_dia_cols, b={b}) {product:.4f} ms; bound {r.bound_ms:.4f} ms")
+        del X, op
+    del op64
+    sync()
+    for name, r in recs.items():
+        print_time(name, r)
+    return recs
+
+
 def main():
     import torch
 
@@ -4656,9 +4748,11 @@ def run_phases(mats, references, smi):
 
     final, final_dtypes = counts(), kernels.dtype_launch_counts()
     # The DIA shard form runs on the sharded path (phases 41-44) alone, the
-    # fused CG on the shift-invert path (phases 26-31) alone.
+    # fused CG on the shift-invert path (phases 26-31) alone, the fused
+    # Chebyshev step on the filtered path (phases 32-34) alone.
     missing = [k for k, v in final.items() if v == 0
-               and k not in ("spmv_dia_ext", "spmv_dia_ext_cols", "cg_banded")]
+               and k not in ("spmv_dia_ext", "spmv_dia_ext_cols", "cg_banded",
+                             "cheby_banded")]
     if missing:
         fail(f"kernels never launched on the main path: {missing}")
     print(f"launches on the main path (phases 2-13): {final}")
@@ -4709,7 +4803,8 @@ def run_phases(mats, references, smi):
     f_wall = time.perf_counter() - t0
     f_counts, f_dtypes = counts(), kernels.dtype_launch_counts()
     idle = [f"{name}:{tag}" for name, tag in (
-        ("spmv_dia_cols", "float64"), ("spmv_ell_cols", "float32"),
+        ("cheby_banded", "float64"), ("spmv_dia_cols", "float64"),
+        ("spmv_ell_cols", "float32"),
         ("spmv_ell_cols", "float64"), ("spmv_dia", "float64"),
         ("spmv_ell", "float32"), ("masked_project", "float64"),
         ("project_update_norm", "float64"))
@@ -4722,6 +4817,9 @@ def run_phases(mats, references, smi):
     print("phase 1 at the filter's widths (after phase 34, outside the counted "
           "windows)")
     frec = phase_filter_kernels(mats, widths, torch.Generator(device="cuda").manual_seed(4))
+    frec.update(phase_cheby_banded(mats, widths,
+                                   torch.Generator(device="cuda").manual_seed(9)))
+    rec["cheby_banded"] = frec["cheby_banded:filter"]    # the float64 record
     f_extra["32"]["sweep"] = filter_sweep_split(
         as_operator(mats["laplace3d64"], dtype=torch.float64, device="cuda"),
         widths["geometry"])
