@@ -2,8 +2,9 @@
 Hessenberg matrix.
 
 The port's copy of ``arnoldi_tpu/ops/dense_tier.py``, unchanged but for this
-paragraph and the source path below: host NumPy/SciPy code whose relative
-imports resolve inside ``arnoldi_tpu_torch``.
+paragraph, the source path below and the backend's choice (the native one
+whenever it loads, no environment switch): host NumPy/SciPy code whose
+relative imports resolve inside ``arnoldi_tpu_torch``.
 
 In the solver these run on m x m matrices with m <= ~200 — off the hot path
 (reference call stack §3.1: LAPACK zgees/ztrexc on the host while the sharded
@@ -24,26 +25,18 @@ mode is a capability gap in the reference — here the complex path is the
 supported one, and real inputs are promoted).
 """
 
-import os
-
 import numpy as np
 
 from ..utils.sorting import arg_largest_magnitude
 
-_BACKEND = os.environ.get("ARNOLDI_TPU_DENSE_BACKEND", "auto")
-
 
 def _native():
     """Return the native module, or None if unavailable."""
-    if _BACKEND == "scipy":
-        return None
     try:
         from ..native import dense_tier as native_mod
 
         return native_mod if native_mod.available() else None
     except Exception:
-        if _BACKEND == "native":
-            raise
         return None
 
 

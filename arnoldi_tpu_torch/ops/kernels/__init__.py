@@ -1,9 +1,10 @@
 """Hand-written CUDA kernels of the port, with their plain PyTorch versions.
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain
-version for CPU tensors, and counts its launches in a ``launches``
-attribute (and by operand dtype in ``dtype_launches``).  :data:`KERNELS`
-lists them with the TPU kernel each replaces;
+Each wrapper launches its kernel for CUDA tensors, through ``_build``'s
+one launch path, and runs its plain version for CPU tensors.  The launches
+are counted by kernel and operand dtype (:func:`launch_counts`,
+:func:`dtype_launch_counts`).  :data:`KERNELS` lists the wrappers with the
+TPU kernel each replaces;
 a ``*_cols`` entry is the b-column form (b columns as the rows of a
 ``(b, n)`` array, each stored matrix value read once for all b) that the
 block driver uses.  ``cg_banded`` replaces no Pallas kernel: it is the
@@ -14,7 +15,8 @@ b-column kernel with the recurrence as its epilogue), a fusion the JAX
 package gets from XLA.
 """
 
-from . import cg_banded, cheby_banded, ortho_fused, spmv_banded, spmv_bsr, spmv_ell
+from . import (_build, cg_banded, cheby_banded, ortho_fused, spmv_banded, spmv_bsr,
+               spmv_ell)
 from ._build import build
 
 _DIA = ("arnoldi_tpu_torch/csrc/spmv_banded.cu",
@@ -55,23 +57,24 @@ KERNELS = {
 
 
 def reset_launch_counts():
-    for wrapper, _, _ in KERNELS.values():
-        wrapper.launches = 0
-        wrapper.dtype_launches = {}
+    _build.launches.clear()
     spmv_bsr.bsr_matmat.gather8_launches = 0
     spmv_bsr.bsr_window_matmat.walk_launches = 0
-
-
-def launch_counts():
-    """Launches of each kernel since the last reset, all dtypes together."""
-    return {name: wrapper.launches for name, (wrapper, _, _) in KERNELS.items()}
 
 
 def dtype_launch_counts():
     """Launches of each kernel since the last reset by operand dtype:
     ``{name: {"float64": n, "complex128": n, ...}}``."""
-    return {name: dict(wrapper.dtype_launches)
-            for name, (wrapper, _, _) in KERNELS.items()}
+    counts = {name: {} for name in KERNELS}
+    for (name, dtype), n in _build.launches.items():
+        counts[name][_build.DTYPE_NAMES[dtype]] = n
+    return counts
+
+
+def launch_counts():
+    """Launches of each kernel since the last reset, all dtypes together."""
+    return {name: sum(by_dtype.values())
+            for name, by_dtype in dtype_launch_counts().items()}
 
 
 __all__ = ["KERNELS", "build", "dtype_launch_counts", "launch_counts",

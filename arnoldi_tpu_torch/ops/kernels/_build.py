@@ -9,9 +9,15 @@ and again whenever a source is newer than the library.  No PyTorch header is
 compiled, so the build takes seconds.
 
 Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` turns a nonzero code into an error.
-Entry points are named ``<kernel>_<suffix>`` by operand dtype: ``f32``,
-``f64``, ``c64`` and ``c128``.
+``cudaGetLastError()``.  Entry points are named ``<kernel>_<suffix>`` by
+operand dtype: ``f32``, ``f64``, ``c64`` and ``c128``.
+
+Every wrapper launches through this module alone: :func:`operand_device`
+checks its operands, :func:`resolve` finds an entry point (resolved once
+per process, when the library loads), and :func:`launch` calls it on the
+current stream, raises on a nonzero code and counts the launch
+(:data:`launches`).  The two cooperative kernels take their grid barrier's
+counters from :func:`ticket`.
 """
 
 import ctypes
@@ -33,15 +39,24 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 #: Operand dtypes of the kernels and the suffix of their entry points.
 SUFFIXES = {torch.float32: "f32", torch.float64: "f64",
             torch.complex64: "c64", torch.complex128: "c128"}
-#: Their names, the keys of a wrapper's ``dtype_launches``.
+#: Their names, the keys of ``kernels.dtype_launch_counts()``' entries.
 DTYPE_NAMES = {dtype: str(dtype).removeprefix("torch.") for dtype in SUFFIXES}
 
 _lock = threading.Lock()
 _lib = None
+#: ``(entry point name, dtype)`` -> C entry point, and a scalar query's name
+#: -> its value; filled when the library loads.
+_entries = {}
+#: ``(device index, raw stream, counter dtype)`` -> a grid barrier's counters.
+_tickets = {}
+#: ``(kernel name, operand dtype)`` -> launches since the last reset, the
+#: kernel named as in ``kernels.KERNELS``.
+launches = {}
 
 _p = ctypes.c_void_p
 _i64 = ctypes.c_longlong
 _i32 = ctypes.c_int
+_f64 = ctypes.c_double
 _SIGNATURES = {
     # bands, x, y, rows, k, offsets (host int64[k]), nb, bands row stride,
     # row0, x_base, x_len, stream
@@ -63,12 +78,19 @@ _SIGNATURES = {
     "arn_project_update_norm": [_p, _p, _p, _p, _p, _p, _i64, _i32, _i32, _p],
     # bands, x (T_j), prev (T_{j-1}), out (T_{j+1}), y, n, k, offsets (host
     # int64[k]), nb, c, scale, c0, coef, first, stream
-    "arn_cheby_dia": [_p, _p, _p, _p, _p, _i64, _i32, _p, _i32, ctypes.c_double,
-                      ctypes.c_double, ctypes.c_double, ctypes.c_double, _i32,
-                      _p],
+    "arn_cheby_dia": [_p, _p, _p, _p, _p, _i64, _i32, _p, _i32, _f64, _f64, _f64,
+                      _f64, _i32, _p],
+    # bands, k, offsets (host int64[k]), n, sigma, b, x, r, p0, p1, Ap,
+    # partials, partials' capacity, ticket, iterations, tol^2, atol^2,
+    # maxiter, stream
+    "arn_cg_dia": [_p, _i32, _p, _i64, _f64, _p, _p, _p, _p, _p, _p, _p, _i32, _p,
+                   _p, _f64, _f64, _i64, _p],
 }
 #: The entry points with real forms alone (every other has all of SUFFIXES).
-_REAL_ONLY = ("arn_cheby_dia",)
+_REAL_ONLY = ("arn_cheby_dia", "arn_cg_dia")
+#: C functions of no arguments that return an int the wrappers size with:
+#: the fused CG's partials' capacity, the update pass's columns a block.
+_QUERIES = ("arn_cg_dia_partials", "arn_update_cols_per_block")
 
 
 def _sources():
@@ -141,22 +163,29 @@ def _build_locked():
 
 
 def library():
-    """The loaded kernel library, building it first if needed."""
+    """The loaded kernel library, building it first if needed.  Loading it
+    types every entry point and reads every scalar query once
+    (:func:`resolve` hands them out)."""
     global _lib
     with _lock:
         if _lib is None:
             _build_locked()
             lib = ctypes.CDLL(str(LIB_PATH))
             for name, argtypes in _SIGNATURES.items():
-                for suffix in (("f32", "f64") if name in _REAL_ONLY
-                               else SUFFIXES.values()):
+                for dtype, suffix in SUFFIXES.items():
+                    if name in _REAL_ONLY and dtype.is_complex:
+                        continue
                     fn = getattr(lib, f"{name}_{suffix}")
                     fn.argtypes = argtypes
                     fn.restype = ctypes.c_int
+                    _entries[name, dtype] = fn
+            for name in _QUERIES:
+                query = getattr(lib, name)
+                query.argtypes = []
+                query.restype = ctypes.c_int
+                _entries[name] = query()
             lib.arn_error_string.argtypes = [ctypes.c_int]
             lib.arn_error_string.restype = ctypes.c_char_p
-            lib.arn_update_cols_per_block.argtypes = []
-            lib.arn_update_cols_per_block.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -166,52 +195,66 @@ def is_loaded():
     return _lib is not None
 
 
-def check(rc, kernel):
-    """Raise if a C entry point returned a CUDA error code."""
-    if rc != 0:
+def resolve(name, dtype=None):
+    """The C entry point ``name`` for operand ``dtype`` (one of
+    :data:`SUFFIXES`), or with no dtype the value of the scalar query
+    ``name``; loads the library (building it first if needed) on the first
+    call of the process."""
+    key = name if dtype is None else (name, dtype)
+    found = _entries.get(key)
+    if found is None:
+        library()
+        found = _entries[key]
+    return found
+
+
+def launch(kernel, entry, dtype, device, *args):
+    """The one launch path: call the C entry point ``entry`` for operand
+    ``dtype`` with ``args`` and the raw handle of the current stream of
+    CUDA device ``device`` (an index), read without building a
+    ``torch.cuda.Stream``.  A device guard is entered only when ``device``
+    is not the current device.  Raises on a nonzero return code, else
+    counts one launch of ``kernel`` (its name in ``kernels.KERNELS``)."""
+    fn = resolve(entry, dtype)
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if device == torch._C._cuda_getDevice():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
+    if rc:
         msg = library().arn_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: CUDA error {rc} ({msg})")
+    key = (kernel, dtype)
+    launches[key] = launches.get(key, 0) + 1
 
 
-def kernel_fn(name, dtype):
-    """The C entry point ``name`` for an operand dtype of :data:`SUFFIXES`."""
-    return getattr(library(), f"{name}_{SUFFIXES[dtype]}")
+def ticket(device, dtype):
+    """The address of a cooperative kernel's grid barrier: two counters of
+    ``dtype`` on CUDA device ``device`` (an index), one zeroed pair per
+    device, current stream and dtype (int32 for ``arn_masked_project``,
+    int64 for ``arn_cg_dia``, so the two kernels never share one).  They
+    are zero between launches (the last block resets them) and shared only
+    by launches on one stream, which run in order."""
+    key = (device, torch._C._cuda_getCurrentRawStream(device), dtype)
+    counters = _tickets.get(key)
+    if counters is None:
+        counters = _tickets[key] = torch.zeros(2, dtype=dtype, device=device)
+    return counters.data_ptr()
 
 
-def count_launch(wrapper, dtype):
-    """Count one launch of ``wrapper``'s kernel: ``wrapper.launches`` (all
-    dtypes) and ``wrapper.dtype_launches[name]`` (``"complex128"``, ...)."""
-    wrapper.launches += 1
-    key = DTYPE_NAMES[dtype]
-    wrapper.dtype_launches[key] = wrapper.dtype_launches.get(key, 0) + 1
-
-
-def entry_points(name):
-    """``{dtype: C entry point}`` of ``name`` for every dtype of
-    :data:`SUFFIXES`, resolved once by a wrapper on its first launch
-    (loading the library, building it first if needed)."""
-    lib = library()
-    return {dtype: getattr(lib, f"{name}_{suffix}")
-            for dtype, suffix in SUFFIXES.items()}
-
-
-def launch(fn, device, *args):
-    """The lean launch: call the C entry point ``fn`` with ``args`` and the
-    raw handle of the current stream of CUDA device ``device`` (an index),
-    read without building a ``torch.cuda.Stream``.  A device guard is
-    entered only when ``device`` is not the current device.  Returns the
-    entry point's code (:func:`check`)."""
-    if device == torch._C._cuda_getDevice():
-        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
-    with torch.cuda.device(device):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(device))
+def on_device(t, device):
+    """True when ``t`` lies on the operands' device (an index of
+    :func:`operand_device`; -1: the CPU)."""
+    return (t.is_cuda and t.get_device() == device) if device >= 0 else t.is_cpu
 
 
 def operand_device(kernel, a, b):
-    """:func:`on_cuda`'s checks of two operands, by plain attribute
-    compares: one dtype among :data:`SUFFIXES`, one device, contiguous.
-    Returns the CUDA device index (launch the kernel), or -1 for CPU
-    tensors (run the plain version); any other device raises."""
+    """The checks every wrapper makes of two operands before it dispatches,
+    by plain attribute compares: one dtype among :data:`SUFFIXES`, one
+    device, contiguous.  Returns the CUDA device index (launch the kernel),
+    or -1 for CPU tensors (run the plain version); any other device
+    raises."""
     dtype = a.dtype
     if dtype not in DTYPE_NAMES:
         names = " or ".join(DTYPE_NAMES.values())
@@ -231,33 +274,3 @@ def operand_device(kernel, a, b):
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError(f"{kernel}: operands must be contiguous")
     return index
-
-
-def launch_context(device):
-    """``(device guard, raw stream handle)`` for a launch on ``device``."""
-    return torch.cuda.device(device), torch.cuda.current_stream(device).cuda_stream
-
-
-def on_cuda(kernel, *tensors, dtypes=tuple(SUFFIXES)):
-    """The checks every wrapper makes before it dispatches.
-
-    All operands must be of one dtype among ``dtypes`` (float32, float64,
-    complex64 or complex128 by default; ``int32`` index arrays are checked
-    by the caller), on one device, and contiguous.  Returns True for CUDA
-    tensors (launch the kernel) and False for CPU tensors (run the plain
-    PyTorch version); any other device raises.
-    """
-    dtype, device = tensors[0].dtype, tensors[0].device
-    if dtype not in dtypes:
-        names = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
-        raise TypeError(f"{kernel}: {names} operands, got {dtype}")
-    for t in tensors:
-        if t.dtype != dtype:
-            raise TypeError(f"{kernel}: mixed dtypes {dtype} and {t.dtype}")
-        if t.device != device:
-            raise ValueError(f"{kernel}: operands on {device} and {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{kernel}: operands must be contiguous")
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{kernel}: CPU or CUDA tensors, got {device}")
-    return device.type == "cuda"

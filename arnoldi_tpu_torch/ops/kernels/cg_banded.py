@@ -21,8 +21,6 @@ The shift-invert operators route a solve here for a single-device
 preconditioner (``solvers/spectral_transform.py``).
 """
 
-import ctypes
-
 import torch
 
 from . import _build
@@ -30,44 +28,6 @@ from .spmv_banded import MAX_OFFSETS, banded_matvec_plain, launch_plan
 
 #: The operand dtypes the kernel takes.
 DTYPES = (torch.float32, torch.float64)
-
-_p = ctypes.c_void_p
-_i64 = ctypes.c_longlong
-_i32 = ctypes.c_int
-_f64 = ctypes.c_double
-# bands, k, offsets (host int64[k]), n, sigma, b, x, r, p0, p1, Ap, partials,
-# partials' capacity, ticket, iterations, tol^2, atol^2, maxiter, stream
-_ARGTYPES = [_p, _i32, _p, _i64, _f64, _p, _p, _p, _p, _p, _p, _p, _i32, _p, _p,
-             _f64, _f64, _i64, _p]
-
-_entries = None    # ({dtype: C entry point}, partials' capacity), on first launch
-_TICKETS = {}
-
-
-def _resolve():
-    global _entries
-    if _entries is None:
-        lib = _build.library()
-        fns = {}
-        for dtype in DTYPES:
-            fn = getattr(lib, f"arn_cg_dia_{_build.SUFFIXES[dtype]}")
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-            fns[dtype] = fn
-        lib.arn_cg_dia_partials.argtypes = []
-        lib.arn_cg_dia_partials.restype = ctypes.c_int
-        _entries = fns, lib.arn_cg_dia_partials()
-    return _entries
-
-
-def _ticket(device, stream):
-    """The kernel's two barrier counters (int64), one pair per device and
-    stream: zero between launches (the last block resets them), and shared
-    only by launches on one stream, which run in order."""
-    key = (device, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(2, dtype=torch.int64, device=device)
-    return _TICKETS[key]
 
 
 def cg_banded_plain(bands, offsets, sigma, b, *, tol=1e-5, atol=0.0,
@@ -107,23 +67,14 @@ def cg_banded(bands, offsets, sigma, b, *, tol=1e-5, atol=0.0, maxiter=None):
         raise ValueError(f"cg_banded: the kernel takes 1 to {MAX_OFFSETS} "
                          f"diagonals, got {k}")
     maxiter = 10 * n if maxiter is None else int(maxiter)
-    fns, capacity = _resolve()
+    capacity = _build.resolve("arn_cg_dia_partials")
     x, r, p0, p1, Ap = (torch.empty_like(b) for _ in range(5))
     partials = torch.empty(capacity, dtype=b.dtype, device=b.device)
     iters = torch.empty((), dtype=torch.int64, device=b.device)
-    guard, stream = _build.launch_context(b.device)
-    ticket = _ticket(b.device, stream)
-    with guard:
-        rc = fns[b.dtype](bands.data_ptr(), k, array, n, sigma, b.data_ptr(),
-                          x.data_ptr(), r.data_ptr(), p0.data_ptr(),
-                          p1.data_ptr(), Ap.data_ptr(), partials.data_ptr(),
-                          capacity, ticket.data_ptr(), iters.data_ptr(),
-                          tol * tol, atol * atol, maxiter, stream)
-    _build.check(rc, "cg_banded")
-    _build.count_launch(cg_banded, b.dtype)
+    _build.launch("cg_banded", "arn_cg_dia", b.dtype, device, bands.data_ptr(), k,
+                  array, n, sigma, b.data_ptr(), x.data_ptr(), r.data_ptr(),
+                  p0.data_ptr(), p1.data_ptr(), Ap.data_ptr(), partials.data_ptr(),
+                  capacity, _build.ticket(device, torch.int64), iters.data_ptr(),
+                  tol * tol, atol * atol, maxiter)
     its = int(iters.item())               # the solve's one host read
     return x, SolveInfo(its, its + 1)
-
-
-cg_banded.launches = 0
-cg_banded.dtype_launches = {}

@@ -93,18 +93,15 @@ def cheby_banded(bands, offsets, X, coeffs, lmin, lmax):
                          f"diagonals, got {k}")
     if len(coeffs) == 1 or X.shape[0] == 0:
         return torch.mul(X, coeffs[0])
-    fn = _build.kernel_fn("arn_cheby_dia", X.dtype)
     s = X.shape[0]
     c = 0.5 * (lmax + lmin)
     inv_e = 2.0 / (lmax - lmin)
 
     def step(T, prev, out, Y, scale, c0, coef, first):
-        rc = _build.launch(fn, device, bands.data_ptr(), T.data_ptr(),
-                           prev.data_ptr(), out.data_ptr(), Y.data_ptr(), n, k,
-                           array, s, c, scale, c0, coef, first)
-        if rc:
-            _build.check(rc, "cheby_banded")
-        _build.count_launch(cheby_banded, X.dtype)
+        _build.launch("cheby_banded", "arn_cheby_dia", X.dtype, device,
+                      bands.data_ptr(), T.data_ptr(), prev.data_ptr(),
+                      out.data_ptr(), Y.data_ptr(), n, k, array, s, c, scale, c0,
+                      coef, first)
 
     T, Y = torch.empty_like(X), torch.empty_like(X)
     step(X, X, T, Y, inv_e, coeffs[0], coeffs[1], 1)
@@ -114,7 +111,3 @@ def cheby_banded(bands, offsets, X, coeffs, lmin, lmax):
         step(T, prev, out, Y, 2.0 * inv_e, 0.0, coef, 0)
         prev, T = T, out
     return Y
-
-
-cheby_banded.launches = 0
-cheby_banded.dtype_launches = {}

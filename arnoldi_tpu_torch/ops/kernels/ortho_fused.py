@@ -56,20 +56,6 @@ def _check_basis(kernel, Vt, w, n_active):
                          f"[0, {Vt.shape[0]}]")
 
 
-_TICKETS = {}
-
-
-def _ticket(device, stream):
-    """The two int32 counters of the projection kernel's grid barrier, one
-    pair per device and stream: zero between launches (the last block
-    resets them), and shared only by launches on one stream, which run in
-    order."""
-    key = (device, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(2, dtype=torch.int32, device=device)
-    return _TICKETS[key]
-
-
 def masked_project(Vt, w, n_active):
     """``c[r] = conj(Vt[r]) . w`` for ``r < n_active``, 0 after; shape (m+1,).
 
@@ -77,29 +63,20 @@ def masked_project(Vt, w, n_active):
     :data:`PROJECT_CHUNK` columns, a grid-wide barrier, then each row's
     partials summed in a fixed order (the bits of a two-launch split-K)."""
     n_active = int(n_active)
-    cuda = _build.on_cuda("masked_project", Vt, w)
+    device = _build.operand_device("masked_project", Vt, w)
     _check_basis("masked_project", Vt, w, n_active)
-    if not cuda:
+    if device < 0:
         return masked_project_plain(Vt, w, n_active)
     mp1, n = Vt.shape
     n_chunks = -(-n // PROJECT_CHUNK)
     c = torch.empty(mp1, dtype=Vt.dtype, device=Vt.device)
-    fn = _build.kernel_fn("arn_masked_project", Vt.dtype)
-    guard, stream = _build.launch_context(Vt.device)
-    ticket = _ticket(Vt.device, stream)
     partials = torch.empty(max(n_active, 1) * n_chunks, dtype=Vt.dtype,
                            device=Vt.device)
-    with guard:
-        rc = fn(Vt.data_ptr(), w.data_ptr(), c.data_ptr(), partials.data_ptr(),
-                ticket.data_ptr(), n, mp1, n_active, PROJECT_CHUNK, n_chunks,
-                stream)
-    _build.check(rc, "masked_project")
-    _build.count_launch(masked_project, Vt.dtype)
+    _build.launch("masked_project", "arn_masked_project", Vt.dtype, device,
+                  Vt.data_ptr(), w.data_ptr(), c.data_ptr(), partials.data_ptr(),
+                  _build.ticket(device, torch.int32), n, mp1, n_active,
+                  PROJECT_CHUNK, n_chunks)
     return c
-
-
-masked_project.launches = 0
-masked_project.dtype_launches = {}
 
 
 def project_update_norm(Vt, w, c, n_active):
@@ -110,32 +87,25 @@ def project_update_norm(Vt, w, c, n_active):
     dtype.
     """
     n_active = int(n_active)
-    cuda = _build.on_cuda("project_update_norm", Vt, w, c)
+    device = _build.operand_device("project_update_norm", Vt, w)
+    _build.operand_device("project_update_norm", Vt, c)
     _check_basis("project_update_norm", Vt, w, n_active)
     if c.shape != (Vt.shape[0],):
         raise ValueError(f"project_update_norm: c {tuple(c.shape)}, Vt "
                          f"{tuple(Vt.shape)}")
-    if not cuda:
+    if device < 0:
         return project_update_norm_plain(Vt, w, c, n_active)
     n = Vt.shape[1]
-    fn = _build.kernel_fn("arn_project_update_norm", Vt.dtype)
-    n_blocks = -(-n // _build.library().arn_update_cols_per_block())
+    n_blocks = -(-n // _build.resolve("arn_update_cols_per_block"))
     w_new = torch.empty_like(w)
     real = Vt.dtype.to_real()
     norm_sq = torch.empty((), dtype=real, device=Vt.device)
     partials = torch.empty(n_blocks, dtype=real, device=Vt.device)
-    guard, stream = _build.launch_context(Vt.device)
-    with guard:
-        rc = fn(Vt.data_ptr(), w.data_ptr(), c.data_ptr(), w_new.data_ptr(),
-                partials.data_ptr(), norm_sq.data_ptr(), n, n_active, n_blocks,
-                stream)
-    _build.check(rc, "project_update_norm")
-    _build.count_launch(project_update_norm, Vt.dtype)
+    _build.launch("project_update_norm", "arn_project_update_norm", Vt.dtype,
+                  device, Vt.data_ptr(), w.data_ptr(), c.data_ptr(),
+                  w_new.data_ptr(), partials.data_ptr(), norm_sq.data_ptr(), n,
+                  n_active, n_blocks)
     return w_new, norm_sq
-
-
-project_update_norm.launches = 0
-project_update_norm.dtype_launches = {}
 
 
 def cgs2_fused(Vt, w, n_active, *, tol=1e-8, eta=None, mesh=None):

@@ -13,12 +13,12 @@ window of ``x``: the sharded operators of ``parallel/`` (the ring halo's
 extended window, the all-gather's whole vector), with its plain version
 :func:`banded_matvec_ext_plain`.
 
-Every form launches through one lean path, since a single-column launch
-takes about 0.01 ms on the card and the host's work per call set its pace:
-the C entry points are resolved once, the offsets' host array once per
-offsets (:func:`launch_plan`), the operands are checked by plain attribute
-compares (:func:`_build.operand_device`) and the stream handle is read raw
-(:func:`_build.launch`).
+Every form launches through ``_build``'s one lean path, since a
+single-column launch takes about 0.01 ms on the card and the host's work
+per call set its pace: the offsets' host array is built once per offsets
+(:func:`launch_plan`), the operands are checked by plain attribute compares
+(:func:`_build.operand_device`) and :func:`_build.launch` reads the stream
+handle raw.
 """
 
 import ctypes
@@ -31,8 +31,6 @@ from . import _build
 #: Offsets the kernel takes as an argument; ``as_operator`` routes a matrix
 #: to the banded format only with this many distinct diagonals or fewer.
 MAX_OFFSETS = 16
-
-_entries = None   # {dtype: C entry point}, resolved on the first launch
 
 
 def banded_matvec_plain(bands, x, offsets):
@@ -61,20 +59,7 @@ def launch_plan(offsets):
     return offsets, k, (ctypes.c_longlong * max(k, 1))(*offsets)
 
 
-def _dia(device, bands, x, y, rows, k, array, nb, bstride, row0, x_base, x_len,
-         kernel):
-    """Launch the kernel on CUDA device ``device`` (operands checked)."""
-    global _entries
-    if _entries is None:
-        _entries = _build.entry_points("arn_spmv_dia")
-    rc = _build.launch(_entries[x.dtype], device, bands.data_ptr(), x.data_ptr(),
-                       y.data_ptr(), rows, k, array, nb, bstride, row0, x_base,
-                       x_len)
-    if rc:
-        _build.check(rc, kernel)
-
-
-def _launch(kernel, wrapper, bands, x, offsets):
+def _launch(kernel, bands, x, offsets):
     device = _build.operand_device(kernel, bands, x)
     offsets, k, array = launch_plan(tuple(offsets))
     if bands.ndim != 2 or bands.shape[0] != k or x.shape[-1] != bands.shape[1]:
@@ -87,9 +72,10 @@ def _launch(kernel, wrapper, bands, x, offsets):
                          f"diagonals, got {k}")
     n = bands.shape[1]
     y = torch.empty_like(x)
-    _dia(device, bands, x, y, n, k, array, x.shape[0] if x.ndim == 2 else 1,
-         n, 0, 0, n, kernel)
-    _build.count_launch(wrapper, x.dtype)
+    # rows, k, offsets, nb, bands row stride, row0, x_base, x_len
+    _build.launch(kernel, "arn_spmv_dia", x.dtype, device, bands.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), n, k, array,
+                  x.shape[0] if x.ndim == 2 else 1, n, 0, 0, n)
     return y
 
 
@@ -98,11 +84,7 @@ def banded_matvec(bands, x, offsets):
     CPU tensors.  ``bands``: (k, n); ``x``: (n,); ``offsets``: k ints."""
     if x.ndim != 1:
         raise ValueError(f"spmv_dia: x must be (n,), got {tuple(x.shape)}")
-    return _launch("spmv_dia", banded_matvec, bands, x, offsets)
-
-
-banded_matvec.launches = 0
-banded_matvec.dtype_launches = {}
+    return _launch("spmv_dia", bands, x, offsets)
 
 
 def banded_matmat(bands, X, offsets):
@@ -110,11 +92,7 @@ def banded_matmat(bands, X, offsets):
     (b, n).  Each band value is read once for all b columns."""
     if X.ndim != 2:
         raise ValueError(f"spmv_dia_cols: X must be (b, n), got {tuple(X.shape)}")
-    return _launch("spmv_dia_cols", banded_matmat, bands, X, offsets)
-
-
-banded_matmat.launches = 0
-banded_matmat.dtype_launches = {}
+    return _launch("spmv_dia_cols", bands, X, offsets)
 
 
 # -- the shard form --------------------------------------------------------
@@ -139,7 +117,7 @@ def banded_matvec_ext_plain(bands, x, offsets, *, x_base, row0=0, rows=None):
     return y
 
 
-def _launch_ext(kernel, wrapper, bands, x, offsets, x_base, row0, rows):
+def _launch_ext(kernel, bands, x, offsets, x_base, row0, rows):
     device = _build.operand_device(kernel, bands, x)
     offsets, k, array = launch_plan(tuple(offsets))
     n_band = bands.shape[-1]
@@ -156,9 +134,9 @@ def _launch_ext(kernel, wrapper, bands, x, offsets, x_base, row0, rows):
                          f"diagonals, got {k}")
     nb = x.shape[0] if x.ndim == 2 else 1
     y = x.new_empty((nb, rows) if x.ndim == 2 else (rows,))
-    _dia(device, bands, x, y, rows, k, array, nb, n_band, row0, int(x_base),
-         x.shape[-1], kernel)
-    _build.count_launch(wrapper, x.dtype)
+    _build.launch(kernel, "arn_spmv_dia", x.dtype, device, bands.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), rows, k, array, nb, n_band, row0,
+                  int(x_base), x.shape[-1])
     return y
 
 
@@ -170,12 +148,7 @@ def banded_matvec_ext(bands, x, offsets, *, x_base, row0=0, rows=None):
     for CUDA tensors, the plain version for CPU tensors."""
     if x.ndim != 1:
         raise ValueError(f"spmv_dia_ext: x must be (x_len,), got {tuple(x.shape)}")
-    return _launch_ext("spmv_dia_ext", banded_matvec_ext, bands, x, offsets,
-                       x_base, row0, rows)
-
-
-banded_matvec_ext.launches = 0
-banded_matvec_ext.dtype_launches = {}
+    return _launch_ext("spmv_dia_ext", bands, x, offsets, x_base, row0, rows)
 
 
 def banded_matmat_ext(bands, X, offsets, *, x_base, row0=0, rows=None):
@@ -184,9 +157,5 @@ def banded_matmat_ext(bands, X, offsets, *, x_base, row0=0, rows=None):
     if X.ndim != 2:
         raise ValueError(f"spmv_dia_ext_cols: X must be (b, x_len), got "
                          f"{tuple(X.shape)}")
-    return _launch_ext("spmv_dia_ext_cols", banded_matmat_ext, bands, X,
-                       offsets, x_base, row0, rows)
-
-
-banded_matmat_ext.launches = 0
-banded_matmat_ext.dtype_launches = {}
+    return _launch_ext("spmv_dia_ext_cols", bands, X, offsets, x_base, row0,
+                       rows)

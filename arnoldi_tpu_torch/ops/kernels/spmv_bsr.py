@@ -30,10 +30,8 @@ than 8 x 8, complex128 carries :func:`cols_per_pass` = 4 columns a pass
 (the others 8), so that the sums fit the registers; the 8 x 8 b-column
 kernels keep 8 in every dtype.
 
-Every wrapper takes the lean launch path of ``spmv_banded.py``: the C entry
-points are resolved once, the operands are checked by plain attribute
-compares (:func:`_build.operand_device`) and the stream handle is read raw
-(:func:`_build.launch`).
+Every wrapper takes ``_build``'s one lean launch path, as ``spmv_banded.py``
+does (:func:`_build.operand_device`, :func:`_build.launch`).
 """
 
 import dataclasses
@@ -59,8 +57,6 @@ MAX_COLS_PER_PASS = 8
 #: Shared memory the 8 x 8 window kernel keeps beside its stages (two
 #: mbarriers).
 _BARRIER_BYTES = 16
-
-_entries = {}   # {C entry point name: {dtype: entry point}}, resolved on first use
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,24 +298,12 @@ def bsr_window_matvec_plain(blocks, window, x, n_rows):
     return _contract(blocks, xg, n_rows)
 
 
-def _entry(name, dtype):
-    """The C entry point ``name`` for ``dtype``, resolved once a name."""
-    fns = _entries.get(name)
-    if fns is None:
-        fns = _entries[name] = _build.entry_points(name)
-    return fns[dtype]
-
-
-def _on(t, device):
-    """True when ``t`` lies on the operands' device (an index, -1: CPU)."""
-    return (t.is_cuda and t.get_device() == device) if device >= 0 else t.is_cpu
-
-
 def _check(kernel, blocks, cols, x, n_rows):
     """The wrappers' checks; returns the CUDA device index (launch the
     kernel) or -1 (CPU tensors: run the plain version)."""
     device = _build.operand_device(kernel, blocks, x)
-    if cols.dtype != torch.int32 or not _on(cols, device) or not cols.is_contiguous():
+    if cols.dtype != torch.int32 or not _build.on_device(cols, device) \
+            or not cols.is_contiguous():
         raise TypeError(f"{kernel}: block ids must be contiguous int32 on the "
                         "operands' device")
     if blocks.ndim != 4 or cols.shape != blocks.shape[:2] \
@@ -340,7 +324,7 @@ def _out(blocks, x, n_rows):
     return blocks.new_empty((*x.shape[:-1], n_rows))
 
 
-def _gather(kernel, wrapper, blocks, cols, x, n_rows):
+def _gather(kernel, blocks, cols, x, n_rows):
     n_rows = int(n_rows)
     device = _check(kernel, blocks, cols, x, n_rows)
     if device < 0:
@@ -348,18 +332,15 @@ def _gather(kernel, wrapper, blocks, cols, x, n_rows):
     n_brow, L, r, c = blocks.shape
     y = _out(blocks, x, n_rows)
     nb = x.shape[0] if x.ndim == 2 else 1
-    rc = _build.launch(_entry("arn_spmv_bsr", blocks.dtype), device, blocks.data_ptr(),
-                       cols.data_ptr(), x.data_ptr(), y.data_ptr(), n_brow, L, r, c,
-                       n_rows, x.shape[-1], nb)
-    if rc:
-        _build.check(rc, kernel)
-    _build.count_launch(wrapper, blocks.dtype)
+    _build.launch(kernel, "arn_spmv_bsr", blocks.dtype, device, blocks.data_ptr(),
+                  cols.data_ptr(), x.data_ptr(), y.data_ptr(), n_brow, L, r, c,
+                  n_rows, x.shape[-1], nb)
     if uses_gather8(r, c, nb):
-        wrapper.gather8_launches += 1
+        bsr_matmat.gather8_launches += 1
     return y
 
 
-def _windowed(kernel, wrapper, blocks, window, x, n_rows):
+def _windowed(kernel, blocks, window, x, n_rows):
     n_rows = int(n_rows)
     device = _check(kernel, blocks, window.cols, x, n_rows)
     if device < 0:
@@ -367,7 +348,8 @@ def _windowed(kernel, wrapper, blocks, window, x, n_rows):
     n_brow, L, r, c = blocks.shape
     tiles = -(-n_brow // window.tile_brows)
     base = window.tile_base
-    if base.dtype != torch.int32 or base.shape != (tiles,) or not _on(base, device):
+    if base.dtype != torch.int32 or base.shape != (tiles,) \
+            or not _build.on_device(base, device):
         raise ValueError(f"{kernel}: tile_base must be ({tiles},) int32 on the "
                          "operands' device")
     nb = x.shape[0] if x.ndim == 2 else 1
@@ -377,16 +359,13 @@ def _windowed(kernel, wrapper, blocks, window, x, n_rows):
                          f"{c} {blocks.dtype} values does not fit "
                          f"{MAX_SHARED_BYTES} bytes of shared memory")
     y = _out(blocks, x, n_rows)
-    rc = _build.launch(_entry("arn_spmv_bsr_window", blocks.dtype), device,
-                       blocks.data_ptr(), window.cols.data_ptr(), base.data_ptr(),
-                       x.data_ptr(), y.data_ptr(), n_brow, L, r, c, n_rows,
-                       x.shape[-1], nb, window.tile_brows, window.width,
-                       plan.cols_per_pass)
-    if rc:
-        _build.check(rc, kernel)
-    _build.count_launch(wrapper, blocks.dtype)
+    _build.launch(kernel, "arn_spmv_bsr_window", blocks.dtype, device,
+                  blocks.data_ptr(), window.cols.data_ptr(), base.data_ptr(),
+                  x.data_ptr(), y.data_ptr(), n_brow, L, r, c, n_rows,
+                  x.shape[-1], nb, window.tile_brows, window.width,
+                  plan.cols_per_pass)
     if plan.path == "walk":
-        wrapper.walk_launches += 1
+        bsr_window_matmat.walk_launches += 1
     return y
 
 
@@ -405,11 +384,7 @@ def bsr_matvec(blocks, cols, x, n_rows):
     (CPU).  ``blocks``: (n_brow, L, r, c); ``cols``: (n_brow, L) int32;
     ``x``: (n_cols,); returns (n_rows,)."""
     _one("spmv_bsr", x)
-    return _gather("spmv_bsr", bsr_matvec, blocks, cols, x, n_rows)
-
-
-bsr_matvec.launches = 0
-bsr_matvec.dtype_launches = {}
+    return _gather("spmv_bsr", blocks, cols, x, n_rows)
 
 
 def bsr_matmat(blocks, cols, X, n_rows):
@@ -420,11 +395,9 @@ def bsr_matmat(blocks, cols, X, n_rows):
     :func:`bsr_matvec` gives it.  8 x 8 blocks take the staged kernel
     (:func:`uses_gather8`; ``gather8_launches`` counts those launches)."""
     _rows("spmv_bsr_cols", X)
-    return _gather("spmv_bsr_cols", bsr_matmat, blocks, cols, X, n_rows)
+    return _gather("spmv_bsr_cols", blocks, cols, X, n_rows)
 
 
-bsr_matmat.launches = 0
-bsr_matmat.dtype_launches = {}
 bsr_matmat.gather8_launches = 0
 
 
@@ -432,12 +405,7 @@ def bsr_window_matvec(blocks, window, x, n_rows):
     """BSR matvec through the window kernel (CUDA) or its plain version
     (CPU); ``window`` a :class:`BsrWindow` of the same operator."""
     _one("spmv_bsr_window", x)
-    return _windowed("spmv_bsr_window", bsr_window_matvec, blocks, window, x,
-                     n_rows)
-
-
-bsr_window_matvec.launches = 0
-bsr_window_matvec.dtype_launches = {}
+    return _windowed("spmv_bsr_window", blocks, window, x, n_rows)
 
 
 def bsr_window_matmat(blocks, window, X, n_rows):
@@ -448,10 +416,7 @@ def bsr_window_matmat(blocks, window, X, n_rows):
     :func:`window_cols_per_pass` columns' staged windows.  Every column
     gets the bits the single-column kernel gives it."""
     _rows("spmv_bsr_window_cols", X)
-    return _windowed("spmv_bsr_window_cols", bsr_window_matmat, blocks, window,
-                     X, n_rows)
+    return _windowed("spmv_bsr_window_cols", blocks, window, X, n_rows)
 
 
-bsr_window_matmat.launches = 0
-bsr_window_matmat.dtype_launches = {}
 bsr_window_matmat.walk_launches = 0

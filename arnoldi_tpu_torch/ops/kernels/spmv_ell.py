@@ -9,10 +9,8 @@ width comes from ``x``.  Every call is one launch, whose path is a fixed
 rule on the row length L and the column count b (:func:`ell_plan` mirrors
 it); the design note is at the top of ``csrc/spmv_ell.cu``.
 
-Both wrappers take the lean launch path of ``spmv_banded.py``: the C entry
-points are resolved once, the operands are checked by plain attribute
-compares (:func:`_build.operand_device`) and the stream handle is read raw
-(:func:`_build.launch`).
+Both wrappers take ``_build``'s one lean launch path, as ``spmv_banded.py``
+does (:func:`_build.operand_device`, :func:`_build.launch`).
 """
 
 import dataclasses
@@ -34,8 +32,6 @@ TILE_ROWS, GROUP_ROWS = 32, 64
 #: Columns a block of the column-group kernel serves (kGroupCols), and the
 #: most threads it takes (kGroupThreads, also the warp path's block).
 GROUP_COLS, BLOCK_THREADS = 64, 256
-
-_entries = None   # {dtype: C entry point}, resolved on the first launch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,12 +82,11 @@ def ell_matvec_plain(data, cols, x):
     return (data * x[..., cols.long()]).sum(dim=-1)
 
 
-def _launch(kernel, wrapper, data, cols, x):
+def _launch(kernel, data, cols, x):
     device = _build.operand_device(kernel, data, x)
     if cols.dtype != torch.int32:
         raise TypeError(f"{kernel}: cols must be int32, got {cols.dtype}")
-    if not ((cols.is_cuda and cols.get_device() == device) if device >= 0
-            else cols.is_cpu):
+    if not _build.on_device(cols, device):
         raise ValueError(f"{kernel}: cols on {cols.device}, operands on "
                          f"{data.device}")
     if not cols.is_contiguous():
@@ -101,17 +96,12 @@ def _launch(kernel, wrapper, data, cols, x):
                          f"{tuple(cols.shape)}, x {tuple(x.shape)}")
     if device < 0:
         return ell_matvec_plain(data, cols, x)
-    global _entries
-    if _entries is None:
-        _entries = _build.entry_points("arn_spmv_ell")
     n_rows, L = data.shape
     nb = x.shape[0] if x.ndim == 2 else 1
     y = x.new_empty((nb, n_rows) if x.ndim == 2 else (n_rows,))
-    rc = _build.launch(_entries[x.dtype], device, data.data_ptr(), cols.data_ptr(),
-                       x.data_ptr(), y.data_ptr(), n_rows, x.shape[-1], L, nb)
-    if rc:
-        _build.check(rc, kernel)
-    _build.count_launch(wrapper, x.dtype)
+    _build.launch(kernel, "arn_spmv_ell", x.dtype, device, data.data_ptr(),
+                  cols.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows,
+                  x.shape[-1], L, nb)
     return y
 
 
@@ -121,11 +111,7 @@ def ell_matvec(data, cols, x):
     ids, each below ``len(x)``; ``x``: (n_cols,)."""
     if x.ndim != 1:
         raise ValueError(f"spmv_ell: x must be (n_cols,), got {tuple(x.shape)}")
-    return _launch("spmv_ell", ell_matvec, data, cols, x)
-
-
-ell_matvec.launches = 0
-ell_matvec.dtype_launches = {}
+    return _launch("spmv_ell", data, cols, x)
 
 
 def ell_matmat(data, cols, X):
@@ -138,8 +124,4 @@ def ell_matmat(data, cols, X):
     if X.ndim != 2:
         raise ValueError(f"spmv_ell_cols: X must be (b, n_cols), got "
                          f"{tuple(X.shape)}")
-    return _launch("spmv_ell_cols", ell_matmat, data, cols, X)
-
-
-ell_matmat.launches = 0
-ell_matmat.dtype_launches = {}
+    return _launch("spmv_ell_cols", data, cols, X)

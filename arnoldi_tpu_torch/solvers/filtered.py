@@ -50,10 +50,6 @@ The row count must divide the mesh: a padded zero row would add the
 eigenvalue 0, which a window holding 0 would return.
 """
 
-import os
-import sys
-import time
-
 import numpy as np
 import scipy.linalg as sla
 import torch
@@ -511,7 +507,6 @@ def _refine_filtered(op64, X, *, win, own, lmin, lmax, degree, tol, scale,
     X = X.to(torch.float64)
     matvecs = 0
     res_prev = None
-    t_sweep = time.perf_counter()
     for sweep in range(int(max_sweeps)):
         act = _active_rows(res_prev, tol * scale, s)
         if act is None:
@@ -542,13 +537,6 @@ def _refine_filtered(op64, X, *, win, own, lmin, lmax, degree, tol, scale,
             lambda pending: _pending_gains(op64, X, pending, coeffs, lmin,
                                            lmax, mesh))
         matvecs += degree * n_chk
-        if os.environ.get("ARNOLDI_FILTER_VERBOSE"):
-            print(f"[filtered/f64] sweep {sweep}: filtered={n_f} "
-                  f"inside={inside.size} ghosts={n_ghost} "
-                  f"max_rel_res={history.residual_trace[-1]:.2e} "
-                  f"({time.perf_counter() - t_sweep:.1f}s)",
-                  file=sys.stderr, flush=True)
-            t_sweep = time.perf_counter()
         # the collapse guard discounts this sweep's ghosts (per sweep: rows
         # rotate, so one ghost is found again each stalled sweep)
         if (pick.size >= max(nev or 0, min_inside - n_ghost)
@@ -771,12 +759,10 @@ def eigsh_filtered(
     with clock("filter.start_block") as phase:
         X = _start_block(s, n, X0, wdtype, op.device, generator, mesh)
         phase.count = s
-    verbose = bool(os.environ.get("ARNOLDI_FILTER_VERBOSE"))
     history = History.from_k(nev or 1)
     center = 0.5 * (a_m + b_m)
     prev_inside = -1
     res_prev = None
-    t_sweep = time.perf_counter()
     for sweep in range(int(max_iters)):
         with clock("filter.sweep") as phase:
             X, theta_h, res_h, n_f = _filter_rr_step(
@@ -802,13 +788,6 @@ def eigsh_filtered(
                                                lmax, mesh))
             phase.count = degree * n_chk
         matvecs += degree * n_chk
-        if verbose:
-            print(f"[filtered] sweep {sweep}: degree={degree} s={s} "
-                  f"filtered={n_f} inside={inside.size} ghosts={n_ghost} "
-                  f"max_rel_res={history.residual_trace[-1]:.2e} "
-                  f"({time.perf_counter() - t_sweep:.1f}s)",
-                  file=sys.stderr, flush=True)
-            t_sweep = time.perf_counter()
         # An empty stable window is a result only when the KPM count agrees
         # that the window is empty.
         empty_ok = expected is None or expected < 1.0

@@ -574,7 +574,7 @@ def test_ell_wrappers_check_cols_on_a_cuda_device(form, monkeypatch):
     """On a (faked) CUDA device the cols must lie on that device: CPU ids
     raise before any allocation or launch."""
     monkeypatch.setattr(_build, "operand_device", lambda kernel, a, b: 0)
-    monkeypatch.setattr(spmv_ell, "_entries", None)
+    monkeypatch.setattr(_build, "_entries", {})
     with pytest.raises(ValueError, match="cols on cpu"):
         ELL_FORMS[form](*_ell_ok())
-    assert spmv_ell._entries is None     # nothing was resolved or built
+    assert _build._entries == {}     # nothing was resolved or built
