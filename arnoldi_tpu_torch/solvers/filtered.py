@@ -27,7 +27,10 @@ so the CPU tests hold the counts equal to JAX's.
 The API is the JAX package's with the port's conventions: ``generator=``
 (a CPU ``torch.Generator``, drawn in order: the bounds' start vector, the
 KPM probes, the subspace) replaces ``key=``, and ``device=`` places SciPy
-and NumPy input.  Eigenvalues come back as NumPy arrays, eigenvectors as
+and NumPy input.  On a card the subspace's start block comes from a card
+generator seeded by one int64 draw of the CPU generator (the host draws
+one number, not ``s x n``); on the CPU it is drawn from the generator
+itself.  Eigenvalues come back as NumPy arrays, eigenvectors as
 ``(n, k)`` tensors on the operator's device.  ``refine=`` keeps the JAX
 package's values; the double-word continuation (``filtered.py:986-1210``)
 becomes the same sweep in float64 on the operator at its own values, as
@@ -40,9 +43,10 @@ a device mesh (``arnoldi_tpu/solvers/filtered.py:77-80, 277-282, 649-655,
 arguments and holds its row block of the operator (``shard_operator``'s
 all-gather, or a ``HaloOperator`` passed in, whose mesh is the default)
 and its columns of every ``(s, n)`` block.  The start block, the bounds'
-start vector and the KPM probes are drawn whole from the generator on
-every rank and sliced, so a one-rank mesh repeats the unsharded solve bit
-for bit.  Every reduction over n (the CholQR2 Grams, the Rayleigh-Ritz
+start vector and the KPM probes are drawn whole on every rank and sliced
+(on a card the start block from the one seed, in row chunks of at most
+``ceil(s / ranks)`` rows), so a one-rank mesh repeats the unsharded solve
+bit for bit.  Every reduction over n (the CholQR2 Grams, the Rayleigh-Ritz
 matrix, row norms, the KPM moment vector once a pass) is a sum
 all-reduce, so every host decision reads the same numbers on every rank.
 Eigenvalues come back on every rank, eigenvectors as the rank's rows.
@@ -62,7 +66,7 @@ from ..ops.ortho import _reduce, block_cgs2
 from ..parallel.mesh import local_rows
 from ..parallel.sharded import check_operator_mesh, operator_mesh, shard_operator
 from ..utils.history import History
-from ..utils.profiling import phase_clock, solve_span
+from ..utils.profiling import NULL_CLOCK, phase_clock, solve_span
 from ..utils.random import rand_normalized_vector
 from . import refine as refinement
 from .decomposition import arnoldi_expand
@@ -570,11 +574,40 @@ def _refines(refine, op, wdtype, tol):
             and (isinstance(op, FORMAT_OPERATORS) or operator_mesh(op) is not None))
 
 
-def _start_block(s, n, X0, wdtype, device, generator, mesh=None):
+def _draws_on_card(X):
+    """Whether the start block's Gaussian rows are drawn where ``X``
+    lives (a block on the card) rather than on the host."""
+    return X.is_cuda
+
+
+def _card_rows(X, k0, n, generator, mesh):
+    """Fill ``X[k0:]`` with Gaussian rows drawn on ``X``'s device, from a
+    device generator seeded by one int64 draw of the CPU ``generator``
+    (the global CUDA generator is neither seeded nor read).  Under a
+    ``mesh`` every rank draws the whole rows from the same seed, in chunks
+    of at most ``ceil((s - k0) / mesh.size)`` rows, and keeps its columns:
+    one rank draws one chunk, the unsharded block's bits."""
+    seed = int(torch.randint(0, 2**62, (), generator=generator))
+    g = torch.Generator(device=X.device).manual_seed(seed)
+    if mesh is None:
+        X[k0:].normal_(generator=g)
+        return
+    step = -(-(X.shape[0] - k0) // mesh.size)
+    for r in range(k0, X.shape[0], step):
+        rows = X[r:r + step]
+        whole = torch.empty((rows.shape[0], n), dtype=X.dtype, device=X.device)
+        rows.copy_(_columns(whole.normal_(generator=g), mesh))
+
+
+def _start_block(s, n, X0, wdtype, device, generator, mesh=None,
+                 clock=NULL_CLOCK):
     """The ``(s, n)`` start block: the rows of ``X0`` first (at most s),
-    the rest Gaussian rows from ``generator``, orthonormalized by CholQR2.
-    Under a ``mesh`` this rank's columns: the Gaussian rows are drawn whole
-    and sliced, ``X0`` holds the whole rows or this rank's columns."""
+    the rest Gaussian rows, orthonormalized by CholQR2.  On the card the
+    rows are drawn there (:func:`_card_rows`, in the span
+    ``filter.device_draw`` of ``clock``, its count the rows drawn); on the
+    CPU they come from ``generator`` itself.  Under a ``mesh`` this rank's
+    columns: the Gaussian rows are drawn whole and sliced, ``X0`` holds the
+    whole rows or this rank's columns."""
     k0 = 0 if X0 is None else min(int(X0.shape[0]), s)
     n_local = n if mesh is None else n // mesh.size
     X = torch.empty((s, n_local), dtype=wdtype, device=device)
@@ -586,7 +619,12 @@ def _start_block(s, n, X0, wdtype, device, generator, mesh=None):
             raise ValueError(f"X0 has {W.shape[1]} columns; expected {n} (the "
                              f"whole rows) or this rank's {n_local}")
         X[:k0] = W.to(device=device, dtype=wdtype)
-    if k0 < s:
+    if _draws_on_card(X):
+        with clock("filter.device_draw") as phase:
+            if k0 < s:
+                _card_rows(X, k0, n, generator, mesh)
+            phase.count = s - k0
+    elif k0 < s:
         X[k0:] = _columns(torch.randn((s - k0, n), generator=generator,
                                       dtype=wdtype), mesh).to(device)
     return block_cgs2(X, X, 0, mesh=mesh)[1]
@@ -641,7 +679,9 @@ def eigsh_filtered(
         :func:`spectrum_bounds` of a ``bounds_dim``-step Lanczos run.
     dtype : the work dtype (float32 or float64); by default the operator's.
     generator : a CPU ``torch.Generator`` for the bounds' start vector, the
-        KPM probes and the start block (default: seeded with 0).
+        KPM probes and the start block (default: seeded with 0); on a card
+        the start block comes from a card generator seeded by one int64
+        draw of it.
     refine : "auto" continues a float32 solve below tol 1e-6 on a format
         operator in float64: the float32 loop runs to ``max(tol, 1e-5)`` or
         its stall, then the same sweep in float64 on the operator at its
@@ -757,7 +797,7 @@ def eigsh_filtered(
         tol = max(tol, 1e-5)
 
     with clock("filter.start_block") as phase:
-        X = _start_block(s, n, X0, wdtype, op.device, generator, mesh)
+        X = _start_block(s, n, X0, wdtype, op.device, generator, mesh, clock)
         phase.count = s
     history = History.from_k(nev or 1)
     center = 0.5 * (a_m + b_m)
